@@ -20,14 +20,32 @@ prints one JSON line per phase:
                  interleave; prints Mpkt/s, wire Gbit/s and kernel ms;
   5. encrypt   — ``bytes_to_blocks`` -> ``encrypt`` -> ``blocks_to_bytes``
                  round trip of a 64 MiB buffer;
-  6. the ``{"kernels": [...]}`` line: per kernel its launches on its path,
-     time, plain time and bound;
-and last ``{"ok": true, "device": {...}}``.  With ``--profile`` the
-main-path record also carries a ``torch.profiler`` breakdown of one more
-run (device busy time against wall time; full tables in
-``chiprun_out/chip_smoke_profile.txt``).  Any mismatch raises, so the
-script exits non-zero; without a CUDA device it exits non-zero at once.
-Imports nothing of JAX and nothing of the JAX package.
+  6. serve     — ``Platform(ServeBackend(get_config("qwen3-8b"), ...))``
+                 at the model's full width and depth (36 layers, random
+                 f32 weights from a seeded ``torch.Generator``), two
+                 tenants (gold 2 : free 1) deploying cache >> prefill >>
+                 decode, 12 prompts of 256-1,536 tokens and 16 new tokens
+                 each, then one prompt again (a cache hit); checks the
+                 flash-attention launches (36 per prefill group), the
+                 outputs, each layer's kernel attention in one group
+                 against the plain version, and that group's logits
+                 against a prefill whose plain attention rounds as the JAX
+                 package's XLA fallback does (both within the reference's
+                 bf16 tolerance); prints tokens/s, time to first token,
+                 per-tenant completions and the compile log;
+  7. the ``{"kernels": [...]}`` line: per kernel its launches on its path,
+     time, plain time, bound and, where one PyTorch call computes the same
+     function, that call's time;
+and last ``{"ok": true, "device": {...}}``.  Phase 3 also holds the
+flash-attention kernel against its plain version over causal and not,
+G in {1, 4, 8}, hd in {64, 128}, S in {1, 7, 128, 1000, 2051}, B in {1, 4},
+bf16 and f32 (the reference's tolerances: 3e-2 and 2e-5).  With
+``--profile`` the main-path and serve records also carry a
+``torch.profiler`` breakdown of one more run (device busy time against wall
+time; full tables in ``chiprun_out/chip_smoke_profile*.txt``).  Any
+mismatch raises, so the script exits non-zero; without a CUDA device it
+exits non-zero at once.  Imports nothing of JAX and nothing of the JAX
+package.
 """
 from __future__ import annotations
 
@@ -43,6 +61,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 #: H100 SXM HBM3 rate (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
+#: H100 SXM dense bf16 tensor-core rate and float32 rate outside the tensor
+#: cores (NVIDIA data sheet)
+PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 #: 32-bit integer operations an SM can issue per clock: 4 warp schedulers,
 #: each issuing at most one 32-thread instruction per clock (NVIDIA Hopper
 #: architecture white paper).  The INT32 pipe alone has 64 lanes per SM, but
@@ -63,6 +84,20 @@ BATCHES = 8
 ROWS_A, ROWS_B = 65536, 61440
 TIMED_RUNS = 5
 WIRE_BYTES_PER_PKT = (5 + 16) * 4
+#: the serve phase
+SERVE_ARCH = "qwen3-8b"
+SERVE_REQUESTS = 12
+SERVE_PROMPT = (256, 1536)          # prompt lengths, inclusive
+SERVE_MAX_NEW = 16
+SERVE_MAX_LEN = 2048
+SERVE_SEED = 8
+#: flash-attention sweep of phase 3, and the reference's tolerances
+#: (tests/test_kernels.py: assert_allclose atol = rtol)
+FA_SWEEP = dict(causal=(True, False), G=(1, 4, 8), hd=(64, 128),
+                S=(1, 7, 128, 1000, 2048 + 3), B=(1, 4),
+                dtype=("bfloat16", "float32"))
+FA_KV = 2
+FA_TOL = {"torch.bfloat16": 3e-2, "torch.float32": 2e-5}
 
 
 def emit(obj) -> None:
@@ -150,9 +185,12 @@ class Card:
         self.int_ops_per_s = self.sms * INT_OPS_PER_SM_CLOCK * \
             self.clock_mhz * 1e6
 
-    def bound(self, nbytes: float, ops: float) -> tuple[float, str]:
+    def bound(self, nbytes: float, ops: float,
+              ops_per_s: float | None = None) -> tuple[float, str]:
+        """Least ms for ``nbytes`` moved and ``ops`` done at ``ops_per_s``
+        (default: the integer issue rate), and which of the two binds."""
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / self.int_ops_per_s * 1e3
+        t_ops = ops / (ops_per_s or self.int_ops_per_s) * 1e3
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -252,6 +290,53 @@ def check_vpc(dev) -> list:
     expect(rule_table(rules, dev).shape == (3, 4), "rule table shape")
     cases.append("tie-break")
     return cases
+
+
+def fa_inputs(rng, B, S, H, Kv, hd, dtype, dev):
+    import torch
+    td = getattr(torch, dtype.split(".")[-1])
+    return [torch.from_numpy(rng.standard_normal(shape, np.float32))
+            .to(dev, td) for shape in ((B, S, H, hd), (B, S, Kv, hd),
+                                       (B, S, Kv, hd))]
+
+
+def close(got, want, what: str) -> float:
+    """Max abs error of ``got`` against the plain ``want``; raises unless
+    every element is within the reference's tolerance (|a - b| <= tol +
+    tol * |b|, tol by dtype)."""
+    tol = FA_TOL[str(want.dtype)]
+    a, b = got.float(), want.float()
+    err = (a - b).abs()
+    expect(bool((err <= tol + tol * b.abs()).all()),
+           f"{what} differs from plain beyond {tol}: max abs error "
+           f"{float(err.max())}")
+    return float(err.max())
+
+
+def check_flash(dev) -> dict:
+    """The flash-attention kernel against its plain version over the sweep;
+    returns the case count and the largest error per dtype."""
+    import itertools
+
+    import torch
+
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention_cuda)
+    rng = np.random.default_rng(13)
+    worst = {d: 0.0 for d in FA_SWEEP["dtype"]}
+    n = 0
+    for causal, G, hd, S, B, dtype in itertools.product(
+            *(FA_SWEEP[k] for k in ("causal", "G", "hd", "S", "B",
+                                    "dtype"))):
+        q, k, v = fa_inputs(rng, B, S, FA_KV * G, FA_KV, hd, dtype, dev)
+        got = flash_attention_cuda(q, k, v, causal)
+        torch.cuda.synchronize()
+        err = close(got, attention_ref(q, k, v, causal),
+                    "flash_attention")
+        worst[dtype] = max(worst[dtype], err)
+        n += 1
+    return {"cases": n, "kv_heads": FA_KV, "sweep": FA_SWEEP,
+            "max_abs_err": worst}
 
 
 # ---------------------------------------------------------- 4. main path ----
@@ -415,10 +500,10 @@ def main_path(dev, card: Card | None, profile: bool = False):
         launches_path
 
 
-def profile_run(one_run) -> dict:
-    """One more main-path run under ``torch.profiler``: wall time, device
+def profile_run(one_run, table: str = "chip_smoke_profile.txt") -> dict:
+    """One more run of a path under ``torch.profiler``: wall time, device
     busy time (sum of CUDA kernel and memory-op durations), and the top
-    device and host entries.  The full tables go to chiprun_out/."""
+    device and host entries.  The full tables go to chiprun_out/``table``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -434,7 +519,7 @@ def profile_run(one_run) -> dict:
     avgs = prof.key_averages()
     out = Path("chiprun_out")
     out.mkdir(exist_ok=True)
-    (out / "chip_smoke_profile.txt").write_text(
+    (out / table).write_text(
         avgs.table(sort_by="self_cpu_time_total", row_limit=40) + "\n" +
         avgs.table(sort_by="self_device_time_total", row_limit=20))
     host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count)
@@ -534,6 +619,285 @@ def encrypt_path(dev, card: Card, n_bytes: int = 64 << 20):
     return record, line
 
 
+# -------------------------------------------------------------- 6. serve ----
+def serve_path(dev, card: Card, profile: bool = False):
+    """Drive the serving path at the full ``SERVE_ARCH`` config.  Returns the
+    phase record, the flash-attention inputs at the path's typical prefill
+    shape, and the kernel's launches on the path."""
+    import torch
+
+    from repro_torch.api import SERVE_SPECS, Platform, ServeBackend, nt
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.chacha20.kernel import chacha20_xor_cuda
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention_cuda)
+    from repro_torch.kernels.vpc_datapath.kernel import vpc_datapath_cuda
+    from repro_torch.models import apply_prefill, init_params
+    from repro_torch.serving.engine import EngineConfig
+
+    cfg = get_config(SERVE_ARCH)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SERVE_SEED)
+    params = init_params(gen, cfg, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    pages = -(-(SERVE_PROMPT[1] + SERVE_MAX_NEW) // 16)
+    ecfg = EngineConfig(batch_sizes=(1, 2, 4), max_len=SERVE_MAX_LEN,
+                        mem_pages=SERVE_REQUESTS * pages + 64,
+                        epoch_requests=6)
+    backend = ServeBackend(cfg, ecfg, params=params, device=dev)
+    plat = Platform(backend, specs=SERVE_SPECS)
+    chain = nt("cache") >> nt("prefill") >> nt("decode")
+    deps = {"gold": plat.tenant("gold", weight=2.0).deploy(chain),
+            "free": plat.tenant("free", weight=1.0).deploy(chain)}
+    t0 = time.perf_counter()
+    backend.prelaunch()
+    prelaunch_s = time.perf_counter() - t0
+
+    rng = np.random.default_rng(SERVE_SEED)
+    prompts = [rng.integers(2, cfg.vocab_size,
+                            int(rng.integers(SERVE_PROMPT[0],
+                                             SERVE_PROMPT[1] + 1)),
+                            dtype=np.int64).astype(np.int32)
+               for _ in range(SERVE_REQUESTS)]
+    owner = ["gold" if i % 3 else "free" for i in range(SERVE_REQUESTS)]
+    for kernel in (flash_attention_cuda, vpc_datapath_cuda, chacha20_xor_cuda):
+        kernel.launches = 0                  # the serve path's counts start
+    flash_attention_cuda.shapes.clear()
+    t0 = time.perf_counter()
+    reqs = [deps[o].inject(p, max_new=SERVE_MAX_NEW)
+            for o, p in zip(owner, prompts)]
+    plat.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    again = deps[owner[0]].inject(prompts[0], max_new=SERVE_MAX_NEW)
+    plat.run()
+    launches = flash_attention_cuda.launches
+    shapes = dict(flash_attention_cuda.shapes)
+    other = vpc_datapath_cuda.launches + chacha20_xor_cuda.launches
+    rep = plat.report()
+
+    # ---- checks
+    for r in reqs:
+        expect(len(r.out) == SERVE_MAX_NEW and not r.cached and
+               all(0 <= t < cfg.vocab_size for t in r.out),
+               f"request {r.rid}: {len(r.out)} tokens {r.out[:4]}...")
+    expect(again.cached and again.out == reqs[0].out,
+           "the repeated prompt did not hit the cache NT")
+    expect(rep.extra["cache_hits"] == 1, "cache hits != 1")
+    # the prefill groups, from the requests: one group's members share its
+    # first-token time; its prompts are left-padded to the longest
+    members: dict[float, list] = {}
+    for r in reqs:
+        members.setdefault(r.t_first, []).append(r)
+    groups = list(members.values())
+    expect(launches == cfg.n_layers * len(groups) and launches > 0,
+           f"flash-attention launches {launches} != {cfg.n_layers} x "
+           f"{len(groups)} prefill groups")
+    expect(other == 0, f"the serve path launched VPC kernels {other}x")
+    # the kernel's own record of its (B, S): n_layers launches per group,
+    # at each group's longest prompt and a batch size that holds it
+    shape_list = sorted((b, s) for (b, s), n in shapes.items()
+                        for _ in range(n // cfg.n_layers))
+    expect(all(n % cfg.n_layers == 0 for n in shapes.values()) and
+           sorted(s for _, s in shape_list) ==
+           sorted(max(len(r.prompt) for r in g) for g in groups),
+           f"kernel shapes {shapes} do not match the prefill groups")
+    # the largest group once more, from its requests: every layer's kernel
+    # attention against the plain version on the same q, k, v (the path's
+    # real activations), then the logits against a prefill whose plain
+    # attention rounds as the JAX package's XLA fallback does, and against
+    # one with the plain version (f32 probabilities)
+    bs, S = max(shape_list)
+    group = next(g for g in groups if max(len(r.prompt) for r in g) == S)
+    expect(len(group) <= bs, f"a group of {len(group)} in batch {bs}")
+    rows = np.zeros((bs, S), np.int32)
+    for j, r in enumerate(group):
+        rows[j, S - len(r.prompt):] = r.prompt         # left-pad, as served
+    tokens = torch.from_numpy(rows).to(dev)
+    layer_errs = []
+
+    def checked(q, k, v):
+        out = flash_attention_cuda(q, k, v, True)
+        layer_errs.append(close(out, attention_ref(q, k, v, True),
+                                "flash_attention"))
+        return out
+    with torch.inference_mode():
+        served, _ = apply_prefill(params, cfg, {"tokens": tokens},
+                                  max_len=SERVE_MAX_LEN)
+        got = prefill_logits(params, cfg, tokens, checked)
+        want = prefill_logits(params, cfg, tokens, attention_fallback)
+        plain = prefill_logits(params, cfg, tokens,
+                               lambda q, k, v: attention_ref(q, k, v, True))
+    expect(len(layer_errs) == cfg.n_layers, "attention check per layer")
+    expect(torch.equal(got, served),
+           "the checked prefill differs from apply_prefill")
+    expect(bool(torch.isfinite(got).all()), "non-finite logits")
+
+    def diff(a, b):
+        return float((a.float() - b.float()).abs().max())
+    scale = float(want.float().abs().max())
+    logits = {"bs": bs, "S": S, "rows": len(group), "max_abs": scale,
+              "max_abs_err": diff(got, want), "rel_err": diff(got, want) /
+              scale, "max_abs_err_vs_plain": diff(got, plain),
+              "plain_versions_max_abs_err": diff(plain, want),
+              "layer_attention_max_abs_err": max(layer_errs),
+              "same_argmax_rows": int((got.argmax(-1) ==
+                                       want.argmax(-1)).sum())}
+    # element-wise, one bf16 step in one layer's attention grows through 36
+    # bf16 layers past the reference's 3e-2 (the two plain versions differ
+    # as much), so the logits are held to it relative to their own scale
+    expect(logits["max_abs_err"] <= FA_TOL["torch.bfloat16"] * scale,
+           f"prefill logits with the kernel differ from the fallback's "
+           f"beyond 3e-2 of their scale: {logits}")
+
+    ttft = [r.t_first - r.t_submit for r in reqs]
+    record = {
+        "phase": "serve", "arch": cfg.name, "layers": cfg.n_layers,
+        "d_model": cfg.d_model, "params": n_params,
+        "param_dtype": cfg.param_dtype, "compute_dtype": cfg.compute_dtype,
+        "init_seconds": init_s, "prelaunch_seconds": prelaunch_s,
+        "requests": len(reqs) + 1, "prompt_tokens": sum(map(len, prompts)),
+        "seconds": wall,
+        "generated_tokens": sum(len(r.out) for r in reqs),
+        "tokens_per_s": sum(len(r.out) for r in reqs) / wall,
+        "mean_ttft_s": sum(ttft) / len(ttft), "max_ttft_s": max(ttft),
+        "completions": {n: t.pkts_done for n, t in rep.tenants.items()},
+        "cache_hits_by_tenant": {n: t.extra["cached"]
+                                 for n, t in rep.tenants.items()},
+        "cache": [rep.extra["cache_hits"], rep.extra["cache_misses"]],
+        "compile_log": [[k, b, round(sec, 4)]
+                        for k, b, sec in rep.extra["compile_log"]],
+        "prefill_groups": [list(g) for g in shape_list],
+        "flash_attention_launches": launches,
+        "logits_vs_plain": logits,
+        "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    # the typical prefill shape: the most frequent batch size, then the
+    # median prompt length among its groups
+    by_bs: dict[int, list] = {}
+    for b, s in shape_list:
+        by_bs.setdefault(b, []).append(s)
+    common = max(by_bs, key=lambda b: (len(by_bs[b]), b))
+    s_med = sorted(by_bs[common])[len(by_bs[common]) // 2]
+    H, Kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    cdt = "torch." + cfg.compute_dtype
+    fa = fa_inputs(rng, common, s_med, H, Kv, hd, cdt, dev)
+    per_group = [cuda_ms(raw_flash(*fa_inputs(rng, b, s, H, Kv, hd, cdt,
+                                              dev)), 10)
+                 for b, s in shape_list]
+    record["kernel_ms_per_run"] = cfg.n_layers * sum(per_group)
+    record["kernel_share_of_run"] = record["kernel_ms_per_run"] / (wall * 1e3)
+    if profile:
+        more = [rng.integers(2, cfg.vocab_size, int(n), dtype=np.int64)
+                .astype(np.int32)
+                for n in rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1, 4)]
+
+        def one_run():
+            for p in more:
+                deps["gold"].inject(p, max_new=SERVE_MAX_NEW)
+            plat.run()
+        record["profile"] = profile_run(one_run,
+                                        "chip_smoke_profile_serve.txt")
+    return record, fa, launches
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def prefill_logits(params, cfg, tokens, attention):
+    """``apply_prefill``'s logits (no cache kept) with ``attention(q, k, v)``
+    as each layer's causal attention."""
+    import torch
+
+    from repro_torch.models.attention import _project_qkv
+    from repro_torch.models.layers import linear, mlp, norm_apply
+    from repro_torch.models.model import embed_inputs
+    x = embed_inputs(params, cfg, {"tokens": tokens})
+    B, S, _ = x.shape
+    pos = torch.arange(S, dtype=torch.int32, device=x.device)[None]
+    pos = pos.expand(B, S)
+    for lp in params["layers"]:
+        h = norm_apply(cfg.norm, lp["norm1"], x)
+        q, k, v = _project_qkv(lp["attn"], h, cfg, pos)
+        x = x + linear(lp["attn"]["wo"], attention(q, k, v).reshape(B, S, -1))
+        h = norm_apply(cfg.norm, lp["norm2"], x)
+        x = x + mlp(lp["mlp"], h, cfg.mlp_kind)
+    x = norm_apply(cfg.norm, params["final_norm"], x[:, -1:, :])
+    return linear(params["head"], x)[:, 0, :]
+
+
+def attention_fallback(q, k, v):
+    """Causal attention with the JAX package's XLA fallback math
+    (``models/attention.py`` ``_fa_forward``, one query block): f32 scores,
+    the unnormalised probabilities rounded to v's dtype for the PV product,
+    then divided by their f32 sum."""
+    import torch
+    B, S, H, hd = q.shape
+    Kv = k.shape[2]
+    qg = q.reshape(B, S, Kv, H // Kv, hd).float()
+    s = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) * (hd ** -0.5)
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+    s = torch.where(mask, s, torch.full_like(s, -1e30))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    den = p.sum(-1, keepdim=True).clamp_min(1e-30)
+    o = torch.einsum("bkgst,btkd->bskgd", p.to(v.dtype).float(), v.float())
+    o = o / den.permute(0, 3, 1, 2, 4)
+    return o.reshape(B, S, H, hd).to(q.dtype)
+
+
+def raw_flash(q, k, v, causal: bool = True):
+    import torch
+    out = torch.empty_like(q)
+    B, S, H, hd = q.shape
+    return raw_launch("flash_attention", "flash_attention_launch", [
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H,
+        k.shape[2], hd, 1 if q.dtype == torch.bfloat16 else 0, int(causal),
+        torch.cuda.current_stream().cuda_stream], (q, k, v, out))
+
+
+def flash_line(card: Card, fa, launches: int) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention_cuda)
+    q, k, v = fa
+    B, S, H, hd = q.shape
+    Kv = k.shape[2]
+    got = flash_attention_cuda(q, k, v, True)
+    err = close(got, attention_ref(q, k, v, True), "flash_attention")
+    flops = 4 * B * H * hd * S * (S + 1) / 2
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    bound, by = card.bound(nbytes, flops, PEAK_FLOPS[str(q.dtype)])
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:79",
+            "path": "serve", "launches": launches,
+            "shape": {"B": B, "S": S, "H": H, "Kv": Kv, "hd": hd,
+                      "dtype": str(q.dtype), "causal": True},
+            "max_abs_err": err,
+            "ms": cuda_ms(raw_flash(q, k, v), 20),
+            "call_ms": cuda_ms(lambda: flash_attention_cuda(q, k, v), 10),
+            "plain_ms": cuda_ms(lambda: attention_ref(q, k, v, True), 3),
+            "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+            "flops": flops,
+            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), 20),
+            "library": "torch.nn.functional.scaled_dot_product_attention("
+                       "is_causal=True, enable_gqa=True), (B, H, S, hd)"}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -543,6 +907,9 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.vpc_datapath.ops import smem_tile_bytes
     dev = torch.device("cuda", 0)
+    # the plain versions' f32 products in full f32 (PyTorch's default, set
+    # here so a changed default cannot loosen the f32 comparisons)
+    torch.backends.cuda.matmul.allow_tf32 = False
 
     card = Card()
     emit({"phase": "card", "name": card.name, "sms": card.sms,
@@ -561,11 +928,16 @@ def main() -> int:
            f"smem_tile_bytes() {smem_tile_bytes()}")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": _build.build_seconds, "ptxas": ptxas,
-          "vpc_smem_bytes": smem})
+          "vpc_smem_bytes": smem,
+          "flash_smem_bytes": {f"{dt} hd={hd}": libs["flash_attention"]
+                               .flash_attention_smem_bytes(hd, code)
+                               for hd in FA_SWEEP["hd"]
+                               for dt, code in (("f32", 0), ("bf16", 1))}})
 
     t0 = time.perf_counter()
     emit({"phase": "kernels_vs_plain", "chacha20_xor": check_chacha(dev),
           "vpc_datapath": check_vpc(dev), "bit_exact": True,
+          "flash_attention": check_flash(dev),
           "seconds": time.perf_counter() - t0})
 
     record, args, launches = main_path(dev, card,
@@ -576,7 +948,12 @@ def main() -> int:
     record, chacha = encrypt_path(dev, card)
     emit(record)
 
-    emit({"kernels": [vpc, chacha]})
+    record, fa, launches = serve_path(dev, card,
+                                      profile="--profile" in sys.argv)
+    emit(record)
+    flash = flash_line(card, fa, launches)
+
+    emit({"kernels": [vpc, chacha, flash]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": card.name,
                                  "count": torch.cuda.device_count()}})
     return 0

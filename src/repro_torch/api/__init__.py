@@ -8,11 +8,12 @@ facade, and run it::
     dag = nt("firewall") >> nt("nat") >> nt("chacha20")   # chain
     par = nt("rx") >> (nt("fw") | nt("dedup")) >> nt("tx")  # fork/join
 
-The port has one backend so far: ComputeBackend (NT names bound to batched
-PyTorch code; the VPC chain dispatches to one hand-written CUDA kernel on
-the card), with bucket padding, fair coalescing and one device sync per
-run().  The sim, sharded and serving backends of the JAX package are still
-to be ported.
+Backends ported so far: ComputeBackend (NT names bound to batched PyTorch
+code; the VPC chain dispatches to one hand-written CUDA kernel on the card),
+with bucket padding, fair coalescing and one device sync per run(); and
+ServeBackend (the multi-tenant LLM serving engine, ``cache >> prefill >>
+decode``, with prefill attention in a hand-written CUDA kernel).  The sim
+and sharded backends of the JAX package are still to be ported.
 """
 from .backend import (Backend, PlatformReport,  # noqa: F401
                       TenantReport, merge_reports)
@@ -22,3 +23,11 @@ from .compute_backend import (BUILTIN_COMPUTE_NTS, FUSED_KERNELS,  # noqa: F401
 from .dag import (DagError, DagExpr, compile_dag, nt,  # noqa: F401
                   nt_chain, validate_dag)
 from .platform import Deployment, Platform, Tenant  # noqa: F401
+
+
+def __getattr__(name):
+    # ServeBackend pulls in the model stack; import it lazily
+    if name in ("ServeBackend", "SERVE_SPECS"):
+        from . import serve_backend
+        return getattr(serve_backend, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,11 +1,12 @@
 """The backend protocol every substrate implements, plus the typed results
 ``Platform.report()`` returns.
 
-The port has one substrate so far:
+The port has two substrates so far:
 :class:`~repro_torch.api.compute_backend.ComputeBackend`, NT names bound to
 batched PyTorch code and, for the VPC chain, to one hand-written CUDA
-kernel.  The event-simulated sNIC and the LLM serving engine implement the
-same protocol in the JAX package and have not been ported yet.
+kernel; and :class:`~repro_torch.api.serve_backend.ServeBackend`, the LLM
+serving engine.  The event-simulated sNIC implements the same protocol in
+the JAX package and has not been ported yet.
 """
 from __future__ import annotations
 

@@ -4,7 +4,8 @@ This is the repo's analogue of SuperNIC's user interface (§3): a tenant
 registers NTs, declares a network-task DAG with the builder, deploys it,
 injects traffic, and reads typed per-tenant results — without caring whether
 the DAG lands on the event-driven device model, a GPU kernel, or the LLM
-serving engine.  In the port the compute substrate exists so far::
+serving engine.  In the port the compute and serving substrates exist so
+far::
 
     from repro_torch.api import ComputeBackend, Platform, VPC_SPECS, nt
 
@@ -15,6 +16,17 @@ serving engine.  In the port the compute substrate exists so far::
     ten.inject(headers=headers, payload=payload)   # (N, 5), (N, 16) u32
     plat.run()
     print(plat.report()["alice"].gbps)
+
+    from repro_torch.api import SERVE_SPECS, ServeBackend
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import EngineConfig
+
+    plat = Platform(ServeBackend(get_config("qwen3-8b"), EngineConfig()),
+                    specs=SERVE_SPECS)                    # cuda:0
+    dep = plat.tenant("gold", weight=2.0).deploy(
+        nt("cache") >> nt("prefill") >> nt("decode"))
+    dep.inject(prompt, max_new=16)                 # (S,) int32 token ids
+    plat.run()
 """
 from __future__ import annotations
 

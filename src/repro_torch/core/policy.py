@@ -1,8 +1,8 @@
 """Reusable resource-policy components (paper §4.4, C5).
 
 Both substrates that schedule real work — the event-driven sNIC device model
-and the ML serving engine (both still to be ported) — run the same two
-control loops:
+(still to be ported) and the ML serving engine
+(:mod:`repro_torch.serving.engine`) — run the same two control loops:
 
   - **run-time-monitored DRF admission**: accumulate *measured* per-tenant
     demand vectors over an epoch (offered load, captured before any credit or

@@ -6,7 +6,7 @@ over-subscription, transparent swap-in.  The paper measures 15-20 us to swap
 a 2 MB page; we model 17.5 us and make it configurable.
 
 The same class manages the ML runtime's paged KV cache: a "page" is then a
-KV block and "swap" is host/neighbor-pod offload (the serving layer, still to be ported).
+KV block and "swap" is host/neighbor-pod offload (see repro_torch.serving).
 """
 from __future__ import annotations
 

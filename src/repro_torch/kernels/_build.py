@@ -35,6 +35,12 @@ SIGNATURES: dict[str, dict[str, tuple[list, type]]] = {
     "chacha20": {
         "chacha20_xor_launch": ([_P, _P, _P, _P, _U32, _I64, _P], _INT),
     },
+    "flash_attention": {
+        "flash_attention_launch": (
+            [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _INT, _INT, _P],
+            _INT),
+        "flash_attention_smem_bytes": ([_I64, _INT], _I64),
+    },
     "vpc_datapath": {
         "vpc_datapath_launch": (
             [_P, _P, _P, _P, _P, _P, _P, _U32, _P, _P, _P, _I64, _I64, _P],
