@@ -2,11 +2,12 @@
 """Chip smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py              # what the checks run
-    python3 chip_smoke.py --profile    # plus one profiled main-path run
+    python3 chip_smoke.py --profile    # plus one profiled run of each path
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
-``build/repro_torch_kernels/``), holds each kernel bit-exact against its
-plain PyTorch version on the card, drives the two paths a user calls, and
+``build/repro_torch_kernels/``), holds each kernel against its plain
+PyTorch version on the card (bit-exact for the integer kernels), drives the
+paths a user calls, and
 prints one JSON line per phase:
 
   1. card      — device name, and the ``nvidia-smi`` name / power limit line;
@@ -20,26 +21,40 @@ prints one JSON line per phase:
                  interleave; prints Mpkt/s, wire Gbit/s and kernel ms;
   5. encrypt   — ``bytes_to_blocks`` -> ``encrypt`` -> ``blocks_to_bytes``
                  round trip of a 64 MiB buffer;
-  6. serve     — ``Platform(ServeBackend(get_config("qwen3-8b"), ...))``
-                 at the model's full width and depth (36 layers, random
-                 f32 weights from a seeded ``torch.Generator``), two
-                 tenants (gold 2 : free 1) deploying cache >> prefill >>
-                 decode, 12 prompts of 256-1,536 tokens and 16 new tokens
-                 each, then one prompt again (a cache hit); checks the
-                 flash-attention launches (36 per prefill group), the
-                 outputs, each layer's kernel attention in one group
-                 against the plain version, and that group's logits
-                 against a prefill whose plain attention rounds as the JAX
-                 package's XLA fallback does (both within the reference's
-                 bf16 tolerance); prints tokens/s, time to first token,
-                 per-tenant completions and the compile log;
+  6. serve phases — ``Platform(ServeBackend(cfg, ...))`` three times, each
+                 model's weights random f32 from a seeded
+                 ``torch.Generator`` and freed before the next phase:
+                 ``serve`` (qwen3-8b, 36 layers, 12 prompts), ``serve_hybrid``
+                 (jamba-v0.1-52b at full width cut to one period of 8 layers:
+                 7 Mamba, 1 attention, 4 MoE; 8 prompts) and ``serve_moe``
+                 (granite-moe-1b-a400m whole, 24 attention + MoE layers;
+                 8 prompts).  Two tenants (gold 2 : free 1) deploy cache >>
+                 prefill >> decode; prompts of 256-1,536 tokens with 16 new
+                 tokens each, then one prompt again (a cache hit).  Checks
+                 the exact launches of each kernel (per prefill group: one
+                 ``flash_attention`` per attention layer, three ``moe_gmm``
+                 per MoE layer, one ``mamba_ssm`` per Mamba layer; per decode
+                 step the last two again), the outputs, every launch of one
+                 prefill group against its plain version on the path's own
+                 activations, and that group's logits against a prefill with
+                 every kernel replaced by its plain version (attention
+                 rounding as the JAX package's XLA fallback does) that takes
+                 the same experts, within 3e-2 of their scale; the tokens
+                 whose experts differ when the plain prefill routes on its
+                 own are counted, with that prefill's logits.  Prints
+                 tokens/s, time to first token, completions, cache hits,
+                 peak memory, launches and the layer cut (``reduced``);
   7. the ``{"kernels": [...]}`` line: per kernel its launches on its path,
      time, plain time, bound and, where one PyTorch call computes the same
      function, that call's time;
 and last ``{"ok": true, "device": {...}}``.  Phase 3 also holds the
 flash-attention kernel against its plain version over causal and not,
-G in {1, 4, 8}, hd in {64, 128}, S in {1, 7, 128, 1000, 2051}, B in {1, 4},
-bf16 and f32 (the reference's tolerances: 3e-2 and 2e-5).  With
+G in {1, 2, 4, 8}, hd in {64, 128}, S in {1, 7, 128, 1000, 2051}, B in
+{1, 4}, bf16 and f32 (the reference's tolerances: 3e-2 and 2e-5); the
+grouped matmul over E in {1, 16, 32}, M in {1, 2, 7, 200, 800}, four (d, f)
+widths and its three dtype routes (same tolerances); and the selective
+scan over B in {1, 4}, S in {1, 7, 128, 1000}, di in {64, 8192}, from a zero
+and a carried state (1e-4).  With
 ``--profile`` the main-path and serve records also carry a
 ``torch.profiler`` breakdown of one more run (device busy time against wall
 time; full tables in ``chiprun_out/chip_smoke_profile*.txt``).  Any
@@ -84,20 +99,43 @@ BATCHES = 8
 ROWS_A, ROWS_B = 65536, 61440
 TIMED_RUNS = 5
 WIRE_BYTES_PER_PKT = (5 + 16) * 4
-#: the serve phase
-SERVE_ARCH = "qwen3-8b"
-SERVE_REQUESTS = 12
+#: special-function-unit results (exp2, the core of expf) an SM returns per
+#: clock on compute capability 9.0 (CUDA C++ Programming Guide, arithmetic
+#: instruction throughput)
+SFU_PER_SM_CLOCK = 16
+#: the serve phases: phase -> (arch, layers kept or None for all, requests);
+#: each serves the same kind of traffic, two tenants (gold 2 : free 1)
+SERVE_PHASES = {
+    "serve": ("qwen3-8b", None, 12),
+    "serve_hybrid": ("jamba-v0.1-52b", 8, 8),
+    "serve_moe": ("granite-moe-1b-a400m", None, 8),
+}
 SERVE_PROMPT = (256, 1536)          # prompt lengths, inclusive
 SERVE_MAX_NEW = 16
 SERVE_MAX_LEN = 2048
 SERVE_SEED = 8
 #: flash-attention sweep of phase 3, and the reference's tolerances
 #: (tests/test_kernels.py: assert_allclose atol = rtol)
-FA_SWEEP = dict(causal=(True, False), G=(1, 4, 8), hd=(64, 128),
+FA_SWEEP = dict(causal=(True, False), G=(1, 2, 4, 8), hd=(64, 128),
                 S=(1, 7, 128, 1000, 2048 + 3), B=(1, 4),
                 dtype=("bfloat16", "float32"))
 FA_KV = 2
 FA_TOL = {"torch.bfloat16": 3e-2, "torch.float32": 2e-5}
+#: grouped-matmul sweep of phase 3: expert counts, row counts, (d, f) widths
+#: (Granite's and Jamba's expert FFNs among them) and the wrapper's routes
+#: (x dtype, w dtype); E = 32 runs only at widths up to GMM_WIDE_LIMIT
+#: elements a matrix, which keeps the sweep in seconds
+GMM_SWEEP = dict(E=(1, 16, 32), M=(1, 2, 7, 200, 800),
+                 df=((64, 100), (1024, 512), (4096, 14336), (14336, 4096)),
+                 route=(("bfloat16", "bfloat16"), ("bfloat16", "float32"),
+                        ("float32", "float32")))
+GMM_WIDE_LIMIT = 1024 * 512
+#: selective-scan sweep of phase 3, and the reference's tolerance for it
+#: (tests/test_kernels.py test_mamba_scan: 1e-4)
+SCAN_SWEEP = dict(B=(1, 4), S=(1, 7, 128, 1000), di=(64, 8192),
+                  h0=(False, True))
+SCAN_DS = 16
+SCAN_TOL = 1e-4
 
 
 def emit(obj) -> None:
@@ -184,13 +222,21 @@ class Card:
         self.clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
         self.int_ops_per_s = self.sms * INT_OPS_PER_SM_CLOCK * \
             self.clock_mhz * 1e6
+        self.sfu_per_s = self.sms * SFU_PER_SM_CLOCK * self.clock_mhz * 1e6
 
     def bound(self, nbytes: float, ops: float,
               ops_per_s: float | None = None) -> tuple[float, str]:
         """Least ms for ``nbytes`` moved and ``ops`` done at ``ops_per_s``
         (default: the integer issue rate), and which of the two binds."""
+        return self.bound_of(nbytes, [(ops, ops_per_s or self.int_ops_per_s)])
+
+    @staticmethod
+    def bound_of(nbytes: float, work: list) -> tuple[float, str]:
+        """Least ms for ``nbytes`` moved and each (ops, ops per second) of
+        ``work`` done, the kinds of operation on units that run at once,
+        and which binds."""
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / (ops_per_s or self.int_ops_per_s) * 1e3
+        t_ops = max(ops / rate * 1e3 for ops, rate in work)
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -300,11 +346,11 @@ def fa_inputs(rng, B, S, H, Kv, hd, dtype, dev):
                                        (B, S, Kv, hd))]
 
 
-def close(got, want, what: str) -> float:
+def close(got, want, what: str, tol: float | None = None) -> float:
     """Max abs error of ``got`` against the plain ``want``; raises unless
     every element is within the reference's tolerance (|a - b| <= tol +
-    tol * |b|, tol by dtype)."""
-    tol = FA_TOL[str(want.dtype)]
+    tol * |b|, tol by dtype unless given)."""
+    tol = FA_TOL[str(want.dtype)] if tol is None else tol
     a, b = got.float(), want.float()
     err = (a - b).abs()
     expect(bool((err <= tol + tol * b.abs()).all()),
@@ -336,6 +382,85 @@ def check_flash(dev) -> dict:
         worst[dtype] = max(worst[dtype], err)
         n += 1
     return {"cases": n, "kv_heads": FA_KV, "sweep": FA_SWEEP,
+            "max_abs_err": worst}
+
+
+def check_moe_gmm(dev) -> dict:
+    """The grouped-matmul kernel against its plain version over the sweep
+    (weights scaled by d^-0.5 as the reference's test and the model draw
+    them); returns the case count and the largest error per route."""
+    import itertools
+
+    import torch
+
+    from repro_torch.kernels.moe_gmm import moe_gmm_cuda, moe_gmm_ref
+    gen = torch.Generator(device=dev).manual_seed(14)
+    worst: dict[str, float] = {}
+    n = 0
+    for E, (d, f), (xd, wd) in itertools.product(
+            GMM_SWEEP["E"], GMM_SWEEP["df"], GMM_SWEEP["route"]):
+        if E == max(GMM_SWEEP["E"]) and d * f > GMM_WIDE_LIMIT:
+            continue
+        w = (torch.randn((E, d, f), generator=gen, device=dev)
+             * d ** -0.5).to(getattr(torch, wd))
+        route = f"x {xd}, w {wd}"
+        for M in GMM_SWEEP["M"]:
+            x = torch.randn((E, M, d), generator=gen, device=dev).to(
+                getattr(torch, xd))
+            got = moe_gmm_cuda(x, w)
+            torch.cuda.synchronize()
+            err = close(got, moe_gmm_ref(x, w),
+                        f"moe_gmm E={E} M={M} d={d} f={f} {route}")
+            worst[route] = max(worst.get(route, 0.0), err)
+            n += 1
+        del w
+    return {"cases": n, "sweep": GMM_SWEEP, "wide_limit": GMM_WIDE_LIMIT,
+            "max_abs_err": worst}
+
+
+def scan_inputs(gen, B, S, di, dev, h0: bool):
+    """The reference test's distributions: x, B, C, D normal, dt =
+    softplus(N - 1), A = -exp(N / 2); h0 normal or none."""
+    import torch
+    import torch.nn.functional as F
+
+    def n(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    return dict(x=n(B, S, di), dt=F.softplus(n(B, S, di) - 1.0),
+                Bmat=n(B, S, SCAN_DS), Cmat=n(B, S, SCAN_DS),
+                A=-torch.exp(n(di, SCAN_DS) * 0.5), D=n(di),
+                h0=n(B, di, SCAN_DS) if h0 else None)
+
+
+def check_mamba(dev) -> dict:
+    """The selective-scan kernel against its plain version over the sweep,
+    y and the final state, and once more with the state updated in place
+    (h0 passed as the output too, as the decode does)."""
+    import itertools
+
+    import torch
+
+    from repro_torch.kernels.mamba_scan import mamba_ssm_cuda, mamba_ssm_ref
+    gen = torch.Generator(device=dev).manual_seed(15)
+    worst = 0.0
+    n = 0
+    for B, S, di, h0 in itertools.product(
+            *(SCAN_SWEEP[k] for k in ("B", "S", "di", "h0"))):
+        a = scan_inputs(gen, B, S, di, dev, h0)
+        y, h = mamba_ssm_cuda(**a)
+        want_y, want_h = mamba_ssm_ref(**a)
+        torch.cuda.synchronize()
+        what = f"mamba_ssm B={B} S={S} di={di} h0={h0}"
+        worst = max(worst, close(y, want_y, what + " y", SCAN_TOL),
+                    close(h, want_h, what + " h_final", SCAN_TOL))
+        if h0:
+            state = a["h0"].clone()
+            y2, h2 = mamba_ssm_cuda(**{**a, "h0": state}, h_out=state)
+            torch.cuda.synchronize()
+            expect(h2 is state and torch.equal(y2, y) and
+                   torch.equal(state, h), what + " in place differs")
+        n += 1
+    return {"cases": n, "sweep": SCAN_SWEEP, "d_state": SCAN_DS,
             "max_abs_err": worst}
 
 
@@ -620,22 +745,38 @@ def encrypt_path(dev, card: Card, n_bytes: int = 64 << 20):
 
 
 # -------------------------------------------------------------- 6. serve ----
-def serve_path(dev, card: Card, profile: bool = False):
-    """Drive the serving path at the full ``SERVE_ARCH`` config.  Returns the
-    phase record, the flash-attention inputs at the path's typical prefill
-    shape, and the kernel's launches on the path."""
+def layer_counts(cfg) -> dict:
+    """Launches of each serving kernel per prefill group and per decode
+    step, from the config's layer kinds."""
+    kinds = cfg.layer_kinds()
+    attn = sum(m == "attn" for m, _ in kinds)
+    mamba = sum(m == "mamba" for m, _ in kinds)
+    moe = sum(c == "moe" for _, c in kinds)
+    return {"prefill": {"flash_attention": attn, "moe_gmm": 3 * moe,
+                        "mamba_ssm": mamba},
+            "decode": {"flash_attention": 0, "moe_gmm": 3 * moe,
+                       "mamba_ssm": mamba}}
+
+
+def serve_path(dev, card: Card, phase: str, cfg, requests: int,
+               reduced: dict, profile: bool = False):
+    """Drive ``Platform(ServeBackend(cfg))`` with two tenants and
+    ``requests`` prompts.  Returns the phase record and, per serving kernel
+    the path launched, its inputs at the path's typical prefill shape (for
+    the kernels line)."""
     import torch
 
     from repro_torch.api import SERVE_SPECS, Platform, ServeBackend, nt
-    from repro_torch.configs import get_config
     from repro_torch.kernels.chacha20.kernel import chacha20_xor_cuda
-    from repro_torch.kernels.flash_attention import (attention_ref,
-                                                     flash_attention_cuda)
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.mamba_scan import mamba_ssm_cuda
+    from repro_torch.kernels.moe_gmm import moe_gmm_cuda
     from repro_torch.kernels.vpc_datapath.kernel import vpc_datapath_cuda
     from repro_torch.models import apply_prefill, init_params
     from repro_torch.serving.engine import EngineConfig
 
-    cfg = get_config(SERVE_ARCH)
+    kernels = {"flash_attention": flash_attention_cuda, "moe_gmm": moe_gmm_cuda,
+               "mamba_ssm": mamba_ssm_cuda}
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(SERVE_SEED)
     params = init_params(gen, cfg, device=dev)
@@ -644,8 +785,7 @@ def serve_path(dev, card: Card, profile: bool = False):
     n_params = sum(t.numel() for t in _leaves(params))
     pages = -(-(SERVE_PROMPT[1] + SERVE_MAX_NEW) // 16)
     ecfg = EngineConfig(batch_sizes=(1, 2, 4), max_len=SERVE_MAX_LEN,
-                        mem_pages=SERVE_REQUESTS * pages + 64,
-                        epoch_requests=6)
+                        mem_pages=requests * pages + 64, epoch_requests=6)
     backend = ServeBackend(cfg, ecfg, params=params, device=dev)
     plat = Platform(backend, specs=SERVE_SPECS)
     chain = nt("cache") >> nt("prefill") >> nt("decode")
@@ -660,11 +800,13 @@ def serve_path(dev, card: Card, profile: bool = False):
                             int(rng.integers(SERVE_PROMPT[0],
                                              SERVE_PROMPT[1] + 1)),
                             dtype=np.int64).astype(np.int32)
-               for _ in range(SERVE_REQUESTS)]
-    owner = ["gold" if i % 3 else "free" for i in range(SERVE_REQUESTS)]
-    for kernel in (flash_attention_cuda, vpc_datapath_cuda, chacha20_xor_cuda):
-        kernel.launches = 0                  # the serve path's counts start
+               for _ in range(requests)]
+    owner = ["gold" if i % 3 else "free" for i in range(requests)]
+    torch.cuda.reset_peak_memory_stats()
+    for kernel in (*kernels.values(), vpc_datapath_cuda, chacha20_xor_cuda):
+        kernel.launches = 0                  # this path's counts start here
     flash_attention_cuda.shapes.clear()
+    moe_gmm_cuda.shapes.clear()
     t0 = time.perf_counter()
     reqs = [deps[o].inject(p, max_new=SERVE_MAX_NEW)
             for o, p in zip(owner, prompts)]
@@ -673,8 +815,9 @@ def serve_path(dev, card: Card, profile: bool = False):
     wall = time.perf_counter() - t0
     again = deps[owner[0]].inject(prompts[0], max_new=SERVE_MAX_NEW)
     plat.run()
-    launches = flash_attention_cuda.launches
+    launches = {name: k.launches for name, k in kernels.items()}
     shapes = dict(flash_attention_cuda.shapes)
+    gmm_shapes = dict(moe_gmm_cuda.shapes)
     other = vpc_datapath_cuda.launches + chacha20_xor_cuda.launches
     rep = plat.report()
 
@@ -692,23 +835,35 @@ def serve_path(dev, card: Card, profile: bool = False):
     for r in reqs:
         members.setdefault(r.t_first, []).append(r)
     groups = list(members.values())
-    expect(launches == cfg.n_layers * len(groups) and launches > 0,
-           f"flash-attention launches {launches} != {cfg.n_layers} x "
-           f"{len(groups)} prefill groups")
+    steps = len(groups) * (SERVE_MAX_NEW - 1)
+    per = layer_counts(cfg)
+    for name, n in launches.items():
+        want = per["prefill"][name] * len(groups) + per["decode"][name] * steps
+        expect(n == want, f"{name} launches {n} != {per['prefill'][name]} x "
+               f"{len(groups)} prefill groups + {per['decode'][name]} x "
+               f"{steps} decode steps")
     expect(other == 0, f"the serve path launched VPC kernels {other}x")
-    # the kernel's own record of its (B, S): n_layers launches per group,
-    # at each group's longest prompt and a batch size that holds it
+    # the attention kernel's own record of its (B, S): one launch per
+    # attention layer per group, at each group's longest prompt and a batch
+    # size that holds it
+    n_attn = per["prefill"]["flash_attention"]
     shape_list = sorted((b, s) for (b, s), n in shapes.items()
-                        for _ in range(n // cfg.n_layers))
-    expect(all(n % cfg.n_layers == 0 for n in shapes.values()) and
+                        for _ in range(n // n_attn))
+    expect(all(n % n_attn == 0 for n in shapes.values()) and
            sorted(s for _, s in shape_list) ==
            sorted(max(len(r.prompt) for r in g) for g in groups),
            f"kernel shapes {shapes} do not match the prefill groups")
-    # the largest group once more, from its requests: every layer's kernel
-    # attention against the plain version on the same q, k, v (the path's
-    # real activations), then the logits against a prefill whose plain
-    # attention rounds as the JAX package's XLA fallback does, and against
-    # one with the plain version (f32 probabilities)
+    # the largest group once more, from its requests: each launch of each
+    # kernel against its plain version on the same inputs (the path's real
+    # activations), then the logits against a prefill with every kernel
+    # replaced by its plain version (attention rounding as the JAX
+    # package's XLA fallback does), and against one with the plain
+    # attention (f32 probabilities).  Both take the kernel prefill's expert
+    # choices: a token whose top-k probabilities nearly tie takes other
+    # experts under another summation order (not a fault, as the reference
+    # says), and one such flip moves the logits far more than the kernels'
+    # rounding does.  A third all-plain prefill routes on its own; its
+    # logits and the tokens whose experts differ are reported beside.
     bs, S = max(shape_list)
     group = next(g for g in groups if max(len(r.prompt) for r in g) == S)
     expect(len(group) <= bs, f"a group of {len(group)} in batch {bs}")
@@ -716,21 +871,28 @@ def serve_path(dev, card: Card, profile: bool = False):
     for j, r in enumerate(group):
         rows[j, S - len(r.prompt):] = r.prompt         # left-pad, as served
     tokens = torch.from_numpy(rows).to(dev)
-    layer_errs = []
-
-    def checked(q, k, v):
-        out = flash_attention_cuda(q, k, v, True)
-        layer_errs.append(close(out, attention_ref(q, k, v, True),
-                                "flash_attention"))
-        return out
+    errs: dict[str, list] = {name: [] for name in kernels}
+    typical: dict = {}
+    routes: dict[str, dict] = {"kernels": {}, "plain": {}}
+    plain_ops = plain_kernels()
+    fallback = {**plain_ops, "attention": attention_fallback}
     with torch.inference_mode():
         served, _ = apply_prefill(params, cfg, {"tokens": tokens},
                                   max_len=SERVE_MAX_LEN)
-        got = prefill_logits(params, cfg, tokens, checked)
-        want = prefill_logits(params, cfg, tokens, attention_fallback)
-        plain = prefill_logits(params, cfg, tokens,
-                               lambda q, k, v: attention_ref(q, k, v, True))
-    expect(len(layer_errs) == cfg.n_layers, "attention check per layer")
+        got = prefill_logits(params, cfg, tokens, {
+            **checked_kernels(errs, typical),
+            "route": routed(cfg, record=routes["kernels"])})
+        pinned = routed(cfg, pinned=routes["kernels"])
+        want = prefill_logits(params, cfg, tokens, {**fallback,
+                                                    "route": pinned})
+        plain = prefill_logits(params, cfg, tokens, {**plain_ops,
+                                                     "route": pinned})
+        free = prefill_logits(params, cfg, tokens, {
+            **fallback, "route": routed(cfg, record=routes["plain"])}) \
+            if cfg.n_experts else want
+    for name, e in errs.items():
+        expect(len(e) == per["prefill"][name],
+               f"{name} checked {len(e)} launches of one prefill group")
     expect(torch.equal(got, served),
            "the checked prefill differs from apply_prefill")
     expect(bool(torch.isfinite(got).all()), "non-finite logits")
@@ -738,23 +900,33 @@ def serve_path(dev, card: Card, profile: bool = False):
     def diff(a, b):
         return float((a.float() - b.float()).abs().max())
     scale = float(want.float().abs().max())
+    flips = sum(int((k.sort(-1).values != routes["plain"][i].sort(-1)
+                     .values).any(-1).sum())
+                for i, k in routes["kernels"].items())
     logits = {"bs": bs, "S": S, "rows": len(group), "max_abs": scale,
               "max_abs_err": diff(got, want), "rel_err": diff(got, want) /
               scale, "max_abs_err_vs_plain": diff(got, plain),
               "plain_versions_max_abs_err": diff(plain, want),
-              "layer_attention_max_abs_err": max(layer_errs),
+              "kernel_max_abs_err": {n: max(e) for n, e in errs.items() if e},
               "same_argmax_rows": int((got.argmax(-1) ==
-                                       want.argmax(-1)).sum())}
-    # element-wise, one bf16 step in one layer's attention grows through 36
-    # bf16 layers past the reference's 3e-2 (the two plain versions differ
-    # as much), so the logits are held to it relative to their own scale
+                                       want.argmax(-1)).sum()),
+              "routing_flips": flips,
+              "routed_tokens": sum(k.shape[0] * k.shape[1]
+                                   for k in routes["kernels"].values()),
+              "own_routing_max_abs_err": diff(got, free),
+              "own_routing_same_argmax_rows": int((got.argmax(-1) ==
+                                                   free.argmax(-1)).sum())}
+    # element-wise, one bf16 step in one layer grows through the bf16
+    # layers past the reference's 3e-2 (two plain versions differ as much),
+    # so the logits are held to it relative to their own scale
     expect(logits["max_abs_err"] <= FA_TOL["torch.bfloat16"] * scale,
-           f"prefill logits with the kernel differ from the fallback's "
-           f"beyond 3e-2 of their scale: {logits}")
+           f"prefill logits with the kernels differ from the all-plain "
+           f"prefill's (same experts) beyond 3e-2 of their scale: {logits}")
 
     ttft = [r.t_first - r.t_submit for r in reqs]
     record = {
-        "phase": "serve", "arch": cfg.name, "layers": cfg.n_layers,
+        "phase": phase, "arch": cfg.name, "layers": cfg.n_layers,
+        "reduced": reduced,
         "d_model": cfg.d_model, "params": n_params,
         "param_dtype": cfg.param_dtype, "compute_dtype": cfg.compute_dtype,
         "init_seconds": init_s, "prelaunch_seconds": prelaunch_s,
@@ -770,12 +942,15 @@ def serve_path(dev, card: Card, profile: bool = False):
         "compile_log": [[k, b, round(sec, 4)]
                         for k, b, sec in rep.extra["compile_log"]],
         "prefill_groups": [list(g) for g in shape_list],
-        "flash_attention_launches": launches,
+        "decode_steps": steps,
+        "launches": launches, "launches_per_prefill_group": per["prefill"],
+        "launches_per_decode_step": per["decode"],
         "logits_vs_plain": logits,
         "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
     # the typical prefill shape: the most frequent batch size, then the
-    # median prompt length among its groups
+    # median prompt length among its groups; the kernels line times the
+    # attention kernel there and the others at the checked group's shape
     by_bs: dict[int, list] = {}
     for b, s in shape_list:
         by_bs.setdefault(b, []).append(s)
@@ -783,12 +958,17 @@ def serve_path(dev, card: Card, profile: bool = False):
     s_med = sorted(by_bs[common])[len(by_bs[common]) // 2]
     H, Kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     cdt = "torch." + cfg.compute_dtype
-    fa = fa_inputs(rng, common, s_med, H, Kv, hd, cdt, dev)
+    typical["flash_attention"] = fa_inputs(rng, common, s_med, H, Kv, hd,
+                                           cdt, dev)
     per_group = [cuda_ms(raw_flash(*fa_inputs(rng, b, s, H, Kv, hd, cdt,
                                               dev)), 10)
                  for b, s in shape_list]
-    record["kernel_ms_per_run"] = cfg.n_layers * sum(per_group)
-    record["kernel_share_of_run"] = record["kernel_ms_per_run"] / (wall * 1e3)
+    record["flash_attention_ms_per_run"] = n_attn * sum(per_group)
+    record["flash_attention_share_of_run"] = \
+        record["flash_attention_ms_per_run"] / (wall * 1e3)
+    if gmm_shapes:           # the most frequent launch: a decode step's
+        typical["moe_gmm_decode_rows"] = max(gmm_shapes,
+                                             key=gmm_shapes.get)[1]
     if profile:
         more = [rng.integers(2, cfg.vocab_size, int(n), dtype=np.int64)
                 .astype(np.int32)
@@ -799,8 +979,8 @@ def serve_path(dev, card: Card, profile: bool = False):
                 deps["gold"].inject(p, max_new=SERVE_MAX_NEW)
             plat.run()
         record["profile"] = profile_run(one_run,
-                                        "chip_smoke_profile_serve.txt")
-    return record, fa, launches
+                                        f"chip_smoke_profile_{phase}.txt")
+    return record, typical
 
 
 def _leaves(tree):
@@ -814,9 +994,79 @@ def _leaves(tree):
         yield tree
 
 
-def prefill_logits(params, cfg, tokens, attention):
-    """``apply_prefill``'s logits (no cache kept) with ``attention(q, k, v)``
-    as each layer's causal attention."""
+def checked_kernels(errs: dict, typical: dict) -> dict:
+    """The serving kernels as callables for :func:`prefill_logits` that
+    launch each kernel, hold its result element-wise against the plain
+    version on the same inputs (appending the largest error to ``errs``),
+    keep the first launch's inputs in ``typical`` and return the kernel's
+    result."""
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention_cuda)
+    from repro_torch.kernels.mamba_scan import mamba_ssm_cuda, mamba_ssm_ref
+    from repro_torch.kernels.moe_gmm import moe_gmm_cuda, moe_gmm_ref
+
+    def attention(q, k, v):
+        out = flash_attention_cuda(q, k, v, True)
+        errs["flash_attention"].append(
+            close(out, attention_ref(q, k, v, True), "flash_attention"))
+        return out
+
+    def gmm(x, w):
+        out = moe_gmm_cuda(x, w)
+        errs["moe_gmm"].append(close(out, moe_gmm_ref(x, w), "moe_gmm"))
+        typical.setdefault("moe_gmm", (x, w))
+        return out
+
+    def scan(x, dt, Bmat, Cmat, A, D):
+        y, h = mamba_ssm_cuda(x, dt, Bmat, Cmat, A, D)
+        want_y, want_h = mamba_ssm_ref(x, dt, Bmat, Cmat, A, D)
+        errs["mamba_ssm"].append(max(
+            close(y, want_y, "mamba_ssm y", SCAN_TOL),
+            close(h, want_h, "mamba_ssm h_final", SCAN_TOL)))
+        typical.setdefault("mamba_ssm", dict(x=x, dt=dt, Bmat=Bmat,
+                                             Cmat=Cmat, A=A, D=D))
+        return y, h
+    return {"attention": attention, "gmm": gmm, "scan": scan}
+
+
+def plain_kernels() -> dict:
+    """The serving kernels' plain versions as callables for
+    :func:`prefill_logits` (attention with f32 probabilities)."""
+    from repro_torch.kernels.flash_attention import attention_ref
+    from repro_torch.kernels.mamba_scan import mamba_ssm_ref
+    from repro_torch.kernels.moe_gmm import moe_gmm_ref
+    return {"attention": lambda q, k, v: attention_ref(q, k, v, True),
+            "gmm": moe_gmm_ref, "scan": mamba_ssm_ref}
+
+
+def routed(cfg, record: dict | None = None, pinned: dict | None = None):
+    """A ``route(layer, p, x) -> (gates, idx)`` for :func:`prefill_logits`:
+    the model's ``router_topk``, each MoE layer's expert indices kept in
+    ``record``; or, with ``pinned``, layer i routed to ``pinned[i]`` with
+    its own router probabilities of those experts as gates, normalised as
+    ``router_topk`` does."""
+    import torch
+
+    from repro_torch.models.moe import router_topk
+
+    def route(layer: int, p, x):
+        if pinned is None:
+            gates, idx, _ = router_topk(p, x, cfg)
+            record[layer] = idx
+            return gates, idx
+        idx = pinned[layer]
+        probs = torch.softmax(x.float() @ p["router"]["w"].float(), dim=-1)
+        gates = probs.gather(-1, idx)
+        return gates / gates.sum(-1, keepdim=True).clamp(min=1e-9), idx
+    return route
+
+
+def prefill_logits(params, cfg, tokens, ops):
+    """``apply_prefill``'s logits (no cache kept), composed here from the
+    model's own pieces with the kernels passed in ``ops``:
+    ``attention(q, k, v)``, ``gmm(x, w)``, ``scan(x, dt, B, C, A, D) -> (y,
+    h)`` and ``route(layer, p, x) -> (gates, idx)``.  With the kernels
+    themselves it must equal ``apply_prefill`` bit for bit."""
     import torch
 
     from repro_torch.models.attention import _project_qkv
@@ -826,14 +1076,61 @@ def prefill_logits(params, cfg, tokens, attention):
     B, S, _ = x.shape
     pos = torch.arange(S, dtype=torch.int32, device=x.device)[None]
     pos = pos.expand(B, S)
-    for lp in params["layers"]:
+    for i, lp in enumerate(params["layers"]):
         h = norm_apply(cfg.norm, lp["norm1"], x)
-        q, k, v = _project_qkv(lp["attn"], h, cfg, pos)
-        x = x + linear(lp["attn"]["wo"], attention(q, k, v).reshape(B, S, -1))
+        if cfg.mixer_kind(i) == "attn":
+            q, k, v = _project_qkv(lp["attn"], h, cfg, pos)
+            h = linear(lp["attn"]["wo"],
+                       ops["attention"](q, k, v).reshape(B, S, -1))
+        else:
+            h = mamba_prefill(lp["mamba"], h, cfg, ops["scan"])
+        x = x + h
         h = norm_apply(cfg.norm, lp["norm2"], x)
-        x = x + mlp(lp["mlp"], h, cfg.mlp_kind)
+        if cfg.channel_kind(i) == "mlp":
+            x = x + mlp(lp["mlp"], h, cfg.mlp_kind)
+        else:
+            x = x + moe_prefill(lp["moe"], h, cfg, ops, i)
     x = norm_apply(cfg.norm, params["final_norm"], x[:, -1:, :])
     return linear(params["head"], x)[:, 0, :]
+
+
+def mamba_prefill(p, u, cfg, scan):
+    """``models/mamba.py`` ``mamba_apply`` from a zero state, with the
+    selective scan passed in."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models.layers import linear
+    from repro_torch.models.mamba import _causal_conv
+    ds, dtr = cfg.mamba_d_state, cfg.dt_rank
+    x, z = torch.chunk(linear(p["in_proj"], u), 2, dim=-1)
+    x = F.silu(_causal_conv(p, x)[0])
+    dbl = linear(p["x_proj"], x)
+    dt = F.softplus(linear(p["dt_proj"], dbl[..., :dtr]).float()
+                    + p["dt_bias"])
+    y, _ = scan(x.float(), dt, dbl[..., dtr:dtr + ds].float().contiguous(),
+                dbl[..., dtr + ds:].float().contiguous(),
+                -torch.exp(p["A_log"].float()), p["D"].float())
+    return linear(p["out_proj"], y.to(u.dtype) * F.silu(z))
+
+
+def moe_prefill(p, x, cfg, ops, layer: int):
+    """``models/moe.py`` ``moe_apply`` (capacity dispatch), with the
+    routing and the three expert matmuls passed in."""
+    import torch.nn.functional as F
+
+    from repro_torch.models.moe import (_group_combine, _group_dispatch,
+                                        capacity)
+    B, S, d = x.shape
+    E = cfg.n_experts
+    gates, idx = ops["route"](layer, p, x)
+    C = capacity(S, cfg)
+    x_exp, slot, keep, t_s, g_s = _group_dispatch(x, gates, idx, E, C)
+    xe = x_exp.transpose(0, 1).reshape(E, B * C, d)
+    gmm = ops["gmm"]
+    ye = gmm(F.silu(gmm(xe, p["gate"])) * gmm(xe, p["up"]), p["down"])
+    return _group_combine(ye.reshape(E, B, C, d).transpose(0, 1), slot,
+                          keep, t_s, g_s, S)
 
 
 def attention_fallback(q, k, v):
@@ -898,15 +1195,151 @@ def flash_line(card: Card, fa, launches: int) -> dict:
                        "is_causal=True, enable_gqa=True), (B, H, S, hd)"}
 
 
+def raw_gmm(x, w):
+    import torch
+    E, M, d = x.shape
+    f = w.shape[2]
+    out = torch.empty((E, M, f), dtype=x.dtype, device=x.device)
+    code = {torch.float32: 0, torch.bfloat16: 1}
+    return raw_launch("moe_gmm", "moe_gmm_launch", [
+        x.data_ptr(), w.data_ptr(), out.data_ptr(), E, M, d, f,
+        code[x.dtype], code[w.dtype],
+        torch.cuda.current_stream().cuda_stream], (x, w, out))
+
+
+def gmm_bound(card: Card, x, w) -> tuple[float, str, int, float]:
+    E, M, d = x.shape
+    f = w.shape[2]
+    flops = 2 * E * M * d * f
+    nbytes = (x.numel() + E * M * f) * x.element_size() + \
+        w.numel() * w.element_size()
+    bound, by = card.bound(nbytes, flops, PEAK_FLOPS[str(x.dtype)])
+    return bound, by, nbytes, flops
+
+
+def gmm_line(card: Card, typical, launches: int, path: str) -> dict:
+    """The grouped matmul at the checked prefill group's gate launch (the
+    path's own activations and weights) and at a decode launch's rows."""
+    import torch
+
+    from repro_torch.kernels.moe_gmm import moe_gmm_cuda, moe_gmm_ref
+    x, w = typical["moe_gmm"]
+    E, M, d = x.shape
+    f = w.shape[2]
+    err = close(moe_gmm_cuda(x, w), moe_gmm_ref(x, w), "moe_gmm")
+    bound, by, nbytes, flops = gmm_bound(card, x, w)
+    wb = w.to(x.dtype)
+    xd = torch.randn((E, typical["moe_gmm_decode_rows"], d),
+                     device=x.device).to(x.dtype)
+    d_bound, d_by, _, _ = gmm_bound(card, xd, w)
+    return {"name": "moe_gmm", "route": "cuda",
+            "source": "src/repro_torch/csrc/moe_gmm.cu",
+            "replaces": "src/repro/kernels/moe_gmm/kernel.py:39",
+            "path": path, "launches": launches,
+            "shape": {"E": E, "M": M, "d": d, "f": f, "x": str(x.dtype),
+                      "w": str(w.dtype)},
+            "max_abs_err": err,
+            "ms": cuda_ms(raw_gmm(x, w), 10),
+            "call_ms": cuda_ms(lambda: moe_gmm_cuda(x, w), 5),
+            "plain_ms": cuda_ms(lambda: moe_gmm_ref(x, w), 3),
+            "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+            "flops": flops,
+            "library_ms": cuda_ms(lambda: torch.bmm(x, wb), 10),
+            "library": "torch.bmm(x, w in x's dtype); the weight cast is "
+                       "made once, outside the timing",
+            "decode": {"M": xd.shape[1], "ms": cuda_ms(raw_gmm(xd, w), 20),
+                       "bound_ms": d_bound, "bound_by": d_by,
+                       "library_ms": cuda_ms(lambda: torch.bmm(xd, wb),
+                                             20)}}
+
+
+def raw_scan(a: dict):
+    import torch
+    B, S, di = a["x"].shape
+    y = torch.empty_like(a["x"])
+    h = torch.empty((B, di, SCAN_DS), dtype=torch.float32,
+                    device=a["x"].device)
+    h0 = a.get("h0")
+    return raw_launch("mamba_scan", "mamba_ssm_launch", [
+        a["x"].data_ptr(), a["dt"].data_ptr(), a["Bmat"].data_ptr(),
+        a["Cmat"].data_ptr(), a["A"].data_ptr(), a["D"].data_ptr(),
+        None if h0 is None else h0.data_ptr(), y.data_ptr(), h.data_ptr(),
+        B, S, di, SCAN_DS, torch.cuda.current_stream().cuda_stream],
+        (a, y, h))
+
+
+def scan_bound(card: Card, B: int, S: int, di: int, h0: bool):
+    """Bytes: x, dt and y (B, S, di), B and C (B, S, ds), A, D, the final
+    state and h0 when given, f32 each.  Work: per (b, t, channel) ds
+    exponentials on the special-function units, and 6 ds + 3 f32
+    operations (dt*A; h*dA + dx*B as two products and a sum; h*C and its
+    sum; dt*x, D*x and the last sum) at the f32 rate."""
+    nbytes = 4 * (3 * B * S * di + 2 * B * S * SCAN_DS + di * SCAN_DS + di
+                  + (2 if h0 else 1) * B * di * SCAN_DS)
+    steps = B * S * di
+    bound, by = card.bound_of(nbytes, [
+        (steps * (6 * SCAN_DS + 3), PEAK_FLOPS["torch.float32"]),
+        (steps * SCAN_DS, card.sfu_per_s)])
+    return bound, by, nbytes, steps
+
+
+def scan_line(card: Card, typical, launches: int, path: str) -> dict:
+    """The selective scan at the checked prefill group's first Mamba layer
+    (the path's own activations, from a zero state) and at a decode step of
+    that batch (one step from a carried state)."""
+    import torch
+
+    from repro_torch.kernels.mamba_scan import mamba_ssm_cuda, mamba_ssm_ref
+    a = typical["mamba_ssm"]
+    B, S, di = a["x"].shape
+    y, h = mamba_ssm_cuda(**a)
+    want_y, want_h = mamba_ssm_ref(**a)
+    err = max(close(y, want_y, "mamba_ssm y", SCAN_TOL),
+              close(h, want_h, "mamba_ssm h_final", SCAN_TOL))
+    bound, by, nbytes, steps = scan_bound(card, B, S, di, False)
+    dec = {k: (v[:, -1:].contiguous() if k in ("x", "dt", "Bmat", "Cmat")
+               else v) for k, v in a.items()}
+    dec["h0"] = torch.randn((B, di, SCAN_DS), device=a["x"].device)
+    d_bound, d_by, _, _ = scan_bound(card, B, 1, di, True)
+    return {"name": "mamba_ssm", "route": "cuda",
+            "source": "src/repro_torch/csrc/mamba_scan.cu",
+            "replaces": "src/repro/kernels/mamba_scan/kernel.py:57",
+            "path": path, "launches": launches,
+            "shape": {"B": B, "S": S, "di": di, "d_state": SCAN_DS,
+                      "h0": False},
+            "max_abs_err": err,
+            "ms": cuda_ms(raw_scan(a), 10),
+            "call_ms": cuda_ms(lambda: mamba_ssm_cuda(**a), 5),
+            "plain_ms": cuda_ms(lambda: mamba_ssm_ref(**a), 1),
+            "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+            "flops": steps * (6 * SCAN_DS + 3), "exps": steps * SCAN_DS,
+            "library_ms": None,
+            "library": "none: no single PyTorch call",
+            "decode": {"S": 1, "ms": cuda_ms(raw_scan(dec), 50),
+                       "bound_ms": d_bound, "bound_by": d_by}}
+
+
+def free_device() -> None:
+    """Release a finished phase's tensors before the next phase's weights
+    are drawn."""
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
               file=sys.stderr)
         return 1
+    from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     from repro_torch.kernels.vpc_datapath.ops import smem_tile_bytes
     dev = torch.device("cuda", 0)
+    profile = "--profile" in sys.argv
     # the plain versions' f32 products in full f32 (PyTorch's default, set
     # here so a changed default cannot loosen the f32 comparisons)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -914,7 +1347,7 @@ def main() -> int:
     card = Card()
     emit({"phase": "card", "name": card.name, "sms": card.sms,
           "max_sm_clock_mhz": card.clock_mhz,
-          "int_ops_per_s": card.int_ops_per_s,
+          "int_ops_per_s": card.int_ops_per_s, "sfu_per_s": card.sfu_per_s,
           "hbm_bytes_per_s": HBM_BYTES_PER_S})
     print(card.smi, flush=True)
 
@@ -932,28 +1365,51 @@ def main() -> int:
           "flash_smem_bytes": {f"{dt} hd={hd}": libs["flash_attention"]
                                .flash_attention_smem_bytes(hd, code)
                                for hd in FA_SWEEP["hd"]
-                               for dt, code in (("f32", 0), ("bf16", 1))}})
+                               for dt, code in (("f32", 0), ("bf16", 1))},
+          "moe_gmm_smem_bytes": libs["moe_gmm"].moe_gmm_smem_bytes()})
 
     t0 = time.perf_counter()
     emit({"phase": "kernels_vs_plain", "chacha20_xor": check_chacha(dev),
           "vpc_datapath": check_vpc(dev), "bit_exact": True,
           "flash_attention": check_flash(dev),
+          "moe_gmm": check_moe_gmm(dev), "mamba_ssm": check_mamba(dev),
           "seconds": time.perf_counter() - t0})
+    free_device()
 
-    record, args, launches = main_path(dev, card,
-                                       profile="--profile" in sys.argv)
+    record, args, launches = main_path(dev, card, profile=profile)
     emit(record)
     vpc = vpc_line(card, args, launches)
 
     record, chacha = encrypt_path(dev, card)
     emit(record)
+    free_device()
 
-    record, fa, launches = serve_path(dev, card,
-                                      profile="--profile" in sys.argv)
-    emit(record)
-    flash = flash_line(card, fa, launches)
+    lines = {}
+    for phase, (arch, n_layers, requests) in SERVE_PHASES.items():
+        cfg = get_config(arch)
+        reduced = {}
+        if n_layers is not None:
+            reduced["n_layers"] = f"{cfg.n_layers} -> {n_layers}"
+            cfg = cfg.replace(n_layers=n_layers)
+        t0 = time.perf_counter()
+        record, typical = serve_path(dev, card, phase, cfg, requests,
+                                     reduced, profile=profile)
+        record["phase_seconds"] = time.perf_counter() - t0
+        emit(record)
+        launches = record["launches"]
+        if phase == "serve":
+            lines["flash_attention"] = flash_line(
+                card, typical["flash_attention"], launches["flash_attention"])
+        if phase == "serve_hybrid":
+            lines["moe_gmm"] = gmm_line(card, typical, launches["moe_gmm"],
+                                        phase)
+            lines["mamba_ssm"] = scan_line(card, typical,
+                                           launches["mamba_ssm"], phase)
+        del record, typical
+        free_device()
 
-    emit({"kernels": [vpc, chacha, flash]})
+    emit({"kernels": [vpc, chacha, lines["flash_attention"],
+                      lines["moe_gmm"], lines["mamba_ssm"]]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": card.name,
                                  "count": torch.cuda.device_count()}})
     return 0

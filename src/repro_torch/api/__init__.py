@@ -12,8 +12,9 @@ Backends ported so far: ComputeBackend (NT names bound to batched PyTorch
 code; the VPC chain dispatches to one hand-written CUDA kernel on the card),
 with bucket padding, fair coalescing and one device sync per run(); and
 ServeBackend (the multi-tenant LLM serving engine, ``cache >> prefill >>
-decode``, with prefill attention in a hand-written CUDA kernel).  The sim
-and sharded backends of the JAX package are still to be ported.
+decode``, for dense, MoE and hybrid Mamba models, with prefill attention,
+the expert matmuls and the selective scan in hand-written CUDA kernels).
+The sim and sharded backends of the JAX package are still to be ported.
 """
 from .backend import (Backend, PlatformReport,  # noqa: F401
                       TenantReport, merge_reports)

@@ -6,8 +6,9 @@ model, §6.1) — so deployment here means *configuring* that chain: a DAG
 without the ``cache`` NT turns the response cache off for the engine.
 ``inject`` submits token prompts; the report carries finished requests with
 per-tenant latency and cache-hit statistics.  The engine runs on ``cuda:0``
-unless given ``device="cpu"``; prefill attention goes through the
-hand-written CUDA kernel there.
+unless given ``device="cpu"``; nothing here depends on the model family
+(dense, MoE or hybrid Mamba).  On the card, prefill attention, the MoE
+expert matmuls and the Mamba scans go through hand-written CUDA kernels.
 """
 from __future__ import annotations
 

@@ -11,7 +11,9 @@ the same thing from the same parameters.
 :func:`model_params_from_numpy` does the same for a model: the JAX
 package's parameter pytree with numpy leaves (``jax.tree.map(np.asarray,
 params)``) becomes the port's dict of tensors, with the layers as a list
-whether the JAX package stacked them for ``lax.scan`` or not.
+whether the JAX package stacked them for ``lax.scan`` or not (a
+homogeneous MoE stack such as Granite's is stacked, Jamba's hybrid stack
+is a list; ``moe`` and ``mamba`` leaves carry across like any other).
 """
 from __future__ import annotations
 

@@ -41,6 +41,16 @@ SIGNATURES: dict[str, dict[str, tuple[list, type]]] = {
             _INT),
         "flash_attention_smem_bytes": ([_I64, _INT], _I64),
     },
+    "mamba_scan": {
+        "mamba_ssm_launch": (
+            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
+            _INT),
+    },
+    "moe_gmm": {
+        "moe_gmm_launch": (
+            [_P, _P, _P, _I64, _I64, _I64, _I64, _INT, _INT, _P], _INT),
+        "moe_gmm_smem_bytes": ([], _I64),
+    },
     "vpc_datapath": {
         "vpc_datapath_launch": (
             [_P, _P, _P, _P, _P, _P, _P, _U32, _P, _P, _P, _I64, _I64, _P],

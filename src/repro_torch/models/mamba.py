@@ -1,0 +1,117 @@
+"""Mamba (S6 selective-state-space) block for serving, as Jamba's Mamba
+layers use it: the JAX package's ``models/mamba.py`` on tensors.
+
+    x, z   = in_proj(u)                       # (B, S, d_inner) each
+    x      = silu(causal_depthwise_conv(x))
+    dt,B,C = x_proj(x)                        # dt: (dt_rank,), B/C: (d_state,)
+    dt     = softplus(dt_proj(dt) + dt_bias)
+    h_t    = exp(dt*A) * h_{t-1} + (dt*B_t) * x_t
+    y_t    = <h_t, C_t> + D * x_t
+    out    = out_proj(y * silu(z))
+
+The scan goes through the hand-written CUDA kernel on the card
+(:mod:`repro_torch.kernels.mamba_scan`) and its plain version on the CPU,
+in prefill and in every decode step (a scan of one step from the carried
+state).  Rounding points kept from the JAX package: ``in_proj``, the conv
+and ``silu`` in the compute dtype; B and C cast to f32; ``softplus(
+dt_proj(dt) + dt_bias)`` in f32; the scan in f32 on ``x.float()``;
+``y.to(u.dtype) * silu(z)`` before ``out_proj``.  ``F.softplus`` returns
+its input above 20 where ``jax.nn.softplus`` adds log1p(exp(-x)) < e^-20,
+which is below half an f32 step of any input above 20: the same numbers.
+The JAX package's chunked, checkpointed ``lax.scan`` is for the backward
+pass of training; serving needs none of it.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.mamba_scan import selective_scan
+
+from .layers import linear, linear_init, normal
+
+
+def mamba_init(gen, cfg, dtype=torch.float32, device=None):
+    d = cfg.d_model
+    di = cfg.mamba_expand * d
+    ds, dc = cfg.mamba_d_state, cfg.mamba_d_conv
+    dtr = cfg.dt_rank
+    f32 = dict(dtype=torch.float32, device=device)
+    # S4D-real initialisation for A
+    A = torch.arange(1, ds + 1, **f32)[None, :].repeat(di, 1)
+    u = torch.rand((di,), generator=gen, device=gen.device,
+                   dtype=torch.float32).to(device)
+    dt_init = torch.exp(u * (math.log(0.1) - math.log(0.001))
+                        + math.log(0.001))
+    inv_softplus = dt_init + torch.log(-torch.expm1(-dt_init))
+    kw = dict(dtype=dtype, device=device)
+    return {
+        "in_proj": linear_init(gen, d, 2 * di, **kw),
+        "conv_w": normal(gen, (dc, di), device).mul_(
+            1.0 / math.sqrt(dc)).to(dtype),
+        "conv_b": torch.zeros((di,), **kw),
+        "x_proj": linear_init(gen, di, dtr + 2 * ds, **kw),
+        "dt_proj": linear_init(gen, dtr, di, **kw),
+        "dt_bias": inv_softplus,
+        "A_log": torch.log(A),                      # keep f32
+        "D": torch.ones((di,), **f32),
+        "out_proj": linear_init(gen, di, d, **kw),
+    }
+
+
+def _causal_conv(p, x, conv_state=None):
+    """Depthwise causal conv over seq. x: (B, S, di). conv_state: (B, dc-1,
+    di) carry-in from the previous segment (decode). Returns (y, new_state);
+    the new state is a new tensor."""
+    dc = p["conv_w"].shape[0]
+    B, S, di = x.shape
+    if conv_state is None:
+        conv_state = torch.zeros((B, dc - 1, di), dtype=x.dtype,
+                                 device=x.device)
+    xp = torch.cat([conv_state, x], dim=1)                  # (B, S+dc-1, di)
+    y = torch.zeros_like(x)
+    for i in range(dc):  # dc is tiny (4): unrolled shift-sum
+        y = y + xp[:, i:i + S, :] * p["conv_w"][i].to(x.dtype)
+    y = y + p["conv_b"].to(x.dtype)
+    return y, xp[:, -(dc - 1):, :].contiguous()
+
+
+def ssm_scan(x, dt, Bmat, Cmat, A, D, h0=None, h_out=None):
+    """Selective scan. x, dt: (B, S, di); Bmat, Cmat: (B, S, ds); A: (di,
+    ds); D: (di,); h0: (B, di, ds) or None (zeros).  Returns (y (B, S, di),
+    h_final), f32; with ``h_out`` given the final state is written there
+    (it may be ``h0``)."""
+    return selective_scan(x.contiguous(), dt.contiguous(), Bmat.contiguous(),
+                          Cmat.contiguous(), A.contiguous(), D.contiguous(),
+                          h0, h_out)
+
+
+def mamba_apply(p, u, cfg, conv_state=None, ssm_state=None):
+    """u: (B, S, d). Returns (out, (conv_state, ssm_state)).
+
+    A given ``ssm_state`` is updated **in place** to the final state and
+    returned (the JAX package returns a new array); the conv state returned
+    is a new tensor either way."""
+    B, S, d = u.shape
+    ds, dtr = cfg.mamba_d_state, cfg.dt_rank
+    xz = linear(p["in_proj"], u)
+    x, z = torch.chunk(xz, 2, dim=-1)
+    x, conv_state = _causal_conv(p, x, conv_state)
+    x = F.silu(x)
+
+    dbl = linear(p["x_proj"], x)                            # (B,S,dtr+2ds)
+    dt_raw = dbl[..., :dtr]
+    Bmat = dbl[..., dtr:dtr + ds].float()
+    Cmat = dbl[..., dtr + ds:].float()
+    dt = F.softplus(linear(p["dt_proj"], dt_raw).float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"].float())                      # (di, ds)
+
+    y, ssm_state = ssm_scan(x.float(), dt, Bmat, Cmat, A, p["D"].float(),
+                            ssm_state, ssm_state)
+    out = linear(p["out_proj"], y.to(u.dtype) * F.silu(z))
+    return out, (conv_state, ssm_state)
+
+
+__all__ = ["mamba_apply", "mamba_init", "ssm_scan"]

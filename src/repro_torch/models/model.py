@@ -1,5 +1,5 @@
-"""Model assembly for serving: the dense part of the JAX package's
-``models/model.py`` as plain functions over a dict of tensors.
+"""Model assembly for serving: the JAX package's ``models/model.py`` as
+plain functions over a dict of tensors.
 
 Entry points:
   - ``init_params(gen, cfg, device=None)``          parameters for the model
@@ -7,17 +7,21 @@ Entry points:
   - ``apply_decode(params, cfg, cache, batch, pos)`` -> (logits, cache)
   - ``init_cache(cfg, B, max_len, dtype, device)``   decode-state list
 
-Layer structure as in the JAX package: pre-norm attention with residual,
-then pre-norm MLP with residual.  Differences that change no result:
+Layer structure as in the JAX package: a pre-norm mixer (attention or
+Mamba) with residual, then a pre-norm channel (MLP or MoE) with residual,
+each layer's kinds from ``cfg.mixer_kind(i)`` / ``cfg.channel_kind(i)``;
+dense, MoE (Granite) and hybrid (Jamba) stacks all run.  Differences that
+change no result:
   - layers are always a list; the JAX package stacks homogeneous layers for
     ``lax.scan`` (:func:`repro_torch.convert.model_params_from_numpy` takes
     either layout);
   - ``repro.parallel.ctx.constrain_acts`` is a no-op on one device and is
     dropped;
-  - ``apply_decode`` updates the KV cache in place and returns it.
-Mixers ``mamba`` and ``rwkv`` and the ``moe`` and ``rwkv_cm`` channels
-raise ``NotImplementedError`` naming their ROADMAP slice; training
-(``apply_train``) is the training slice.
+  - ``apply_decode`` updates the caches in place and returns them: the KV
+    cache rows, the conv state, and the SSM state, which the scan kernel
+    writes where it read it.
+The RWKV mixer and channel raise ``NotImplementedError`` naming their
+ROADMAP slice; training (``apply_train``) is the training slice.
 """
 from __future__ import annotations
 
@@ -28,23 +32,23 @@ import torch
 from repro_torch import _device
 
 from . import attention as A
+from . import mamba as M
+from . import moe as X
 from .layers import (embed, embed_init, linear, linear_init, mlp, mlp_init,
                      norm_apply, norm_init)
 
 Params = Any
 
 #: layer kinds of other model families -> the ROADMAP slice that ports them
-_SLICES = {"mamba": "the Jamba hybrid slice (mamba_ssm)",
-           "rwkv": "the RWKV-6 slice (rwkv6_wkv)",
-           "rwkv_cm": "the RWKV-6 slice (rwkv6_wkv)",
-           "moe": "the MoE serving slice (moe_gmm)"}
+_SLICES = {"rwkv": "the RWKV-6 slice (rwkv6_wkv)",
+           "rwkv_cm": "the RWKV-6 slice (rwkv6_wkv)"}
 
 #: config dtype names -> torch dtypes
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
 
 
-def _dense_only(cfg, i: int) -> None:
+def _ported_only(cfg, i: int) -> None:
     for kind in (cfg.mixer_kind(i), cfg.channel_kind(i)):
         if kind in _SLICES:
             raise NotImplementedError(
@@ -62,29 +66,54 @@ def _generator(gen, device) -> torch.Generator:
 
 # ================================================================= layers ====
 def layer_init(gen, cfg, i: int, dtype, device=None):
-    _dense_only(cfg, i)
+    _ported_only(cfg, i)
     kw = dict(dtype=dtype, device=device)
-    return {"norm1": norm_init(cfg.norm, cfg.d_model, **kw),
-            "norm2": norm_init(cfg.norm, cfg.d_model, **kw),
-            "attn": A.attn_init(gen, cfg, **kw),
-            "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_kind, **kw)}
+    p = {"norm1": norm_init(cfg.norm, cfg.d_model, **kw),
+         "norm2": norm_init(cfg.norm, cfg.d_model, **kw)}
+    if cfg.mixer_kind(i) == "attn":
+        p["attn"] = A.attn_init(gen, cfg, **kw)
+    else:
+        p["mamba"] = M.mamba_init(gen, cfg, **kw)
+    if cfg.channel_kind(i) == "mlp":
+        p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_kind, **kw)
+    else:
+        p["moe"] = X.moe_init(gen, cfg, **kw)
+    return p
 
 
 def layer_cache_init(cfg, i: int, B: int, max_len: int, dtype, device=None):
-    _dense_only(cfg, i)
-    shape = (B, max_len, cfg.n_kv_heads, cfg.hd)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    _ported_only(cfg, i)
+    if cfg.mixer_kind(i) == "attn":
+        shape = (B, max_len, cfg.n_kv_heads, cfg.hd)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    di = cfg.mamba_expand * cfg.d_model
+    return {"conv": torch.zeros((B, cfg.mamba_d_conv - 1, di), dtype=dtype,
+                                device=device),
+            "ssm": torch.zeros((B, di, cfg.mamba_d_state),
+                               dtype=torch.float32, device=device)}
+
+
+def _channel(p, x, cfg, i: int):
+    h = norm_apply(cfg.norm, p["norm2"], x)
+    if cfg.channel_kind(i) == "mlp":
+        return x + mlp(p["mlp"], h, cfg.mlp_kind)
+    h, _ = X.moe_apply(p["moe"], h, cfg)
+    return x + h
 
 
 def layer_decode(p, cache, x, cfg, i: int, pos: int):
-    """Single-token step. x: (B, 1, d); pos: int. -> (x, cache)."""
+    """Single-token step. x: (B, 1, d); pos: int. -> (x, cache), the
+    cache's tensors updated in place."""
     h = norm_apply(cfg.norm, p["norm1"], x)
-    h, kc, vc = A.attn_decode(p["attn"], h, cfg, cache["k"], cache["v"], pos)
-    cache = {**cache, "k": kc, "v": vc}
-    x = x + h
-    h = norm_apply(cfg.norm, p["norm2"], x)
-    return x + mlp(p["mlp"], h, cfg.mlp_kind), cache
+    if cfg.mixer_kind(i) == "attn":
+        h, _, _ = A.attn_decode(p["attn"], h, cfg, cache["k"], cache["v"],
+                                pos)
+    else:
+        h, (conv, _) = M.mamba_apply(p["mamba"], h, cfg, cache["conv"],
+                                     cache["ssm"])
+        cache["conv"].copy_(conv)
+    return _channel(p, x + h, cfg, i), cache
 
 
 # ================================================================== model ====
@@ -150,12 +179,15 @@ def apply_prefill(params, cfg, batch, max_len: int | None = None):
     for i, lp in enumerate(params["layers"]):
         lc = layer_cache_init(cfg, i, B, max_len, cdt, x.device)
         h = norm_apply(cfg.norm, lp["norm1"], x)
-        h, (k, v) = A.attn_prefill(lp["attn"], h, cfg, positions)
-        lc["k"][:, :S] = k.to(cdt)
-        lc["v"][:, :S] = v.to(cdt)
-        x = x + h
-        h = norm_apply(cfg.norm, lp["norm2"], x)
-        x = x + mlp(lp["mlp"], h, cfg.mlp_kind)
+        if cfg.mixer_kind(i) == "attn":
+            h, (k, v) = A.attn_prefill(lp["attn"], h, cfg, positions)
+            lc["k"][:, :S] = k.to(cdt)
+            lc["v"][:, :S] = v.to(cdt)
+        else:
+            h, (conv, _) = M.mamba_apply(lp["mamba"], h, cfg,
+                                         ssm_state=lc["ssm"])
+            lc["conv"].copy_(conv)
+        x = _channel(lp, x + h, cfg, i)
         cache.append(lc)
     x = norm_apply(cfg.norm, params["final_norm"], x[:, -1:, :])
     logits = linear(params["head"], x)[:, 0, :]

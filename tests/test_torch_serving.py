@@ -95,6 +95,65 @@ def test_prefill_and_decode_match_jax(arch, scan):
         tt = torch.argmax(tl, -1).to(torch.int32)
 
 
+#: MoE and hybrid stacks: (arch, scan_layers, n_layers or None for the
+#: tiny config's own).  Tiny Jamba keeps its copied ``attn_period = 8``, so
+#: its 4 layers have attention only at layer 1 (also an MoE layer); at 8
+#: layers attention, Mamba + MLP and Mamba + MoE layers all run.
+MOE_HYBRID = [("granite-moe-1b-a400m", False, None),
+              ("granite-moe-1b-a400m", True, None),
+              ("jamba-v0.1-52b", False, None),
+              ("jamba-v0.1-52b", False, 8)]
+
+
+def layer_cache(cache, i, key, scan):
+    return cache[key][i] if scan else cache[i][key]
+
+
+def assert_caches(tc, jc, cfg, scan):
+    """Every layer's decode state: K/V rows, the conv state and the f32 SSM
+    state."""
+    for i, (mix, _) in enumerate(cfg.layer_kinds()):
+        keys = ("k", "v") if mix == "attn" else ("conv", "ssm")
+        for key in keys:
+            np.testing.assert_allclose(
+                tc[i][key].float().numpy(),
+                np.asarray(layer_cache(jc, i, key, scan), np.float32),
+                atol=1e-4, rtol=1e-4, err_msg=f"layer {i} {key}")
+
+
+@pytest.mark.parametrize("arch,scan,n_layers", MOE_HYBRID)
+def test_moe_and_hybrid_prefill_and_decode_match_jax(arch, scan, n_layers):
+    """Left-padded prompts, greedy decode past the prompt: logits within
+    1e-4, the same greedy tokens, and every layer's cache (K/V, conv, SSM)
+    within 1e-4 after the prefill and after the last decode step."""
+    cfg = jconfigs.get_tiny_config(arch).replace(scan_layers=scan)
+    if n_layers:
+        cfg = cfg.replace(n_layers=n_layers)
+    jp = JM.init_params(jax.random.PRNGKey(11), cfg)
+    assert isinstance(jp["layers"], dict) == scan     # both JAX layouts
+    tp = ported(jp, cfg)
+    assert len(tp["layers"]) == cfg.n_layers
+    rng = np.random.default_rng(5)
+    toks = rng.integers(2, cfg.vocab_size, (3, 13)).astype(np.int32)
+    toks[2, :5] = 0                                   # left-pad, as the engine
+    jl, jc = j_prefill(jp, cfg, {"tokens": jnp.asarray(toks)}, max_len=24)
+    tl, tc = TM.apply_prefill(tp, cfg, {"tokens": torch.from_numpy(toks)},
+                              max_len=24)
+    assert_logits(tl, jl)
+    assert_caches(tc, jc, cfg, scan)
+    jt = jnp.argmax(jl, -1).astype(jnp.int32)
+    tt = torch.argmax(tl, -1).to(torch.int32)
+    for i in range(6):
+        np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+        jl, jc = j_decode(jp, cfg, jc, {"tokens": jt[:, None]},
+                          jnp.int32(13 + i))
+        tl, tc = TM.apply_decode(tp, cfg, tc, {"tokens": tt[:, None]}, 13 + i)
+        assert_logits(tl, jl)
+        jt = jnp.argmax(jl, -1).astype(jnp.int32)
+        tt = torch.argmax(tl, -1).to(torch.int32)
+    assert_caches(tc, jc, cfg, scan)
+
+
 def test_decode_past_max_len_clamps_like_dynamic_update_slice():
     """pos >= max_len writes K/V at max_len - 1 and attends to pos + 1 keys,
     as ``jax.lax.dynamic_update_slice`` clamps in the JAX package."""
@@ -139,15 +198,24 @@ def test_configs_match_jax():
         8_190_427_136
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "rwkv6-3b",
-                                  "jamba-v0.1-52b"])
+@pytest.mark.parametrize("arch", ["rwkv6-3b"])
 def test_other_families_raise_naming_their_slice(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TM.init_params(0, configs.get_tiny_config(arch), device=CPU)
 
 
 def test_init_params_shapes_dtypes_and_default_device():
-    cfg = configs.get_tiny_config("qwen3-8b")
+    check_init_params(configs.get_tiny_config("qwen3-8b"))
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "jamba-v0.1-52b"])
+def test_init_params_moe_and_hybrid_shapes_dtypes(arch):
+    check_init_params(configs.get_tiny_config(arch).replace(n_layers=8))
+
+
+def check_init_params(cfg):
+    """The port's random parameters have the JAX package's leaves, shapes
+    and dtypes; no device means the card, which is an error without one."""
     jp = JM.init_params(jax.random.PRNGKey(0), cfg)
     tp = TM.init_params(torch.Generator().manual_seed(0), cfg, device=CPU)
     flat_j = jax.tree.leaves_with_path(jp)
@@ -300,6 +368,34 @@ def test_engine_scenario_matches_jax(name):
         assert [len(d[2]) for d in rec["done"]] == [12, 12]
 
 
+def sc_mixed(eng, traj):
+    """Autoscaling over mixed prompt lengths, then a repeat (a cache hit)."""
+    ps = prompts(9, lo=3, hi=20, seed=12)
+    for i, p in enumerate(ps):
+        eng.submit("gold" if i % 3 else "free", p, max_new=5)
+    drain(eng, traj)
+    eng.submit("free", ps[0], max_new=5)
+    drain(eng, traj)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "jamba-v0.1-52b"])
+def test_engine_scenario_moe_and_hybrid_match_jax(arch):
+    """Tokens, the cache hit, the ``active_bs`` trajectory and the compile
+    log of the port's engine against the JAX engine, on the MoE and hybrid
+    tiny configs."""
+    cfg = jconfigs.get_tiny_config(arch)
+    je, te = engines(cfg, dict(batch_sizes=(1, 2, 4), max_len=32,
+                               epoch_requests=6), seed=13)
+    runs = []
+    for eng in (je, te):
+        traj: list = []
+        sc_mixed(eng, traj)
+        runs.append(record(eng, traj))
+    assert runs[1] == runs[0]
+    assert runs[1]["hits"][0] == 1 and runs[1]["done"][-1][3]
+    assert max(runs[1]["active_bs"]) > 1
+
+
 def test_engine_output_equals_direct_steps():
     """The port's engine output == its own direct prefill + decode."""
     cfg = musicgen_cfg(configs)
@@ -349,9 +445,9 @@ def serve_platform(pkg, cfg, ecfg, params):
     return Platform(be, specs=SERVE_SPECS), nt
 
 
-def test_serve_backend_through_platform_matches_jax():
-    cfg = musicgen_cfg(jconfigs)
-    jparams = JM.init_params(jax.random.PRNGKey(9), cfg)
+def platform_reports(cfg, jparams):
+    """The same two-tenant traffic through ``Platform(ServeBackend)`` of
+    the JAX package and of the port, with the same weights."""
     ecfg = dict(batch_sizes=(1, 2), max_len=32, epoch_requests=4)
     reports = []
     for pkg, params in (("jax", jparams), ("torch", ported(jparams, cfg))):
@@ -374,6 +470,24 @@ def test_serve_backend_through_platform_matches_jax():
             "cache": (rep.extra["cache_hits"], rep.extra["cache_misses"]),
             "compile_log": [(k, bs) for k, bs, _ in rep.extra["compile_log"]],
             "capacity": plat.backend.capacity()})
+    return reports
+
+
+def test_serve_backend_through_platform_matches_jax():
+    cfg = musicgen_cfg(jconfigs)
+    reports = platform_reports(cfg, JM.init_params(jax.random.PRNGKey(9),
+                                                   cfg))
+    assert reports[1] == reports[0]
+    assert reports[1]["cache"][0] == 1
+    assert reports[1]["tenants"]["free"][1] == 1
+
+
+def test_serve_backend_hybrid_through_platform_matches_jax():
+    """Tiny Jamba (Mamba, attention and MoE layers) behind the Platform:
+    the same tokens, cache hits and compile log as the JAX package."""
+    cfg = jconfigs.get_tiny_config("jamba-v0.1-52b").replace(n_layers=8)
+    reports = platform_reports(cfg, JM.init_params(jax.random.PRNGKey(9),
+                                                   cfg))
     assert reports[1] == reports[0]
     assert reports[1]["cache"][0] == 1
     assert reports[1]["tenants"]["free"][1] == 1
@@ -408,5 +522,8 @@ def test_isolation_scan_covers_the_serving_slice():
               "faults.errors", "models.layers", "models.attention",
               "models.model", "serving.engine", "api.serve_backend",
               "kernels.flash_attention.kernel",
-              "kernels.flash_attention.ops", "kernels.flash_attention.ref"):
+              "kernels.flash_attention.ops", "kernels.flash_attention.ref",
+              "models.moe", "models.mamba",
+              *(f"kernels.{k}.{m}" for k in ("moe_gmm", "mamba_scan")
+                for m in ("kernel", "ops", "ref"))):
         assert f"repro_torch.{m}" in found, m
