@@ -21,27 +21,34 @@ prints one JSON line per phase:
                  interleave; prints Mpkt/s, wire Gbit/s and kernel ms;
   5. encrypt   — ``bytes_to_blocks`` -> ``encrypt`` -> ``blocks_to_bytes``
                  round trip of a 64 MiB buffer;
-  6. serve phases — ``Platform(ServeBackend(cfg, ...))`` three times, each
+  6. serve phases — ``Platform(ServeBackend(cfg, ...))`` four times, each
                  model's weights random f32 from a seeded
                  ``torch.Generator`` and freed before the next phase:
                  ``serve`` (qwen3-8b, 36 layers, 12 prompts), ``serve_hybrid``
                  (jamba-v0.1-52b at full width cut to one period of 8 layers:
-                 7 Mamba, 1 attention, 4 MoE; 8 prompts) and ``serve_moe``
+                 7 Mamba, 1 attention, 4 MoE; 8 prompts), ``serve_moe``
                  (granite-moe-1b-a400m whole, 24 attention + MoE layers;
-                 8 prompts).  Two tenants (gold 2 : free 1) deploy cache >>
-                 prefill >> decode; prompts of 256-1,536 tokens with 16 new
-                 tokens each, then one prompt again (a cache hit).  Checks
+                 8 prompts) and ``serve_rwkv`` (rwkv6-3b whole, 32 RWKV-6
+                 layers; 8 prompts).  Two tenants (gold 2 : free 1)
+                 deploy cache >> prefill >> decode; prompts of 256-1,536
+                 tokens with 16 new tokens each, then one prompt again (a
+                 cache hit).  Checks
                  the exact launches of each kernel (per prefill group: one
                  ``flash_attention`` per attention layer, three ``moe_gmm``
-                 per MoE layer, one ``mamba_ssm`` per Mamba layer; per decode
-                 step the last two again), the outputs, every launch of one
+                 per MoE layer, one ``mamba_ssm`` per Mamba layer, one
+                 ``rwkv6_wkv`` per RWKV layer; per decode step the last
+                 three again), the outputs, every launch of one
                  prefill group against its plain version on the path's own
                  activations, and that group's logits against a prefill with
                  every kernel replaced by its plain version (attention
                  rounding as the JAX package's XLA fallback does) that takes
-                 the same experts, within 3e-2 of their scale; the tokens
-                 whose experts differ when the plain prefill routes on its
-                 own are counted, with that prefill's logits.  Prints
+                 the same experts, within 3e-2 of their scale (RWKV's with
+                 the model computing in f32, where a scan all in bf16 and
+                 one without the bonus term must fail; its bf16 logits
+                 within twice the spread of a plain prefill with an f64
+                 scan); the
+                 tokens whose experts differ when the plain prefill routes
+                 on its own are counted, with that prefill's logits.  Prints
                  tokens/s, time to first token, completions, cache hits,
                  peak memory, launches and the layer cut (``reduced``);
   7. the ``{"kernels": [...]}`` line: per kernel its launches on its path,
@@ -54,7 +61,9 @@ G in {1, 2, 4, 8}, hd in {64, 128}, S in {1, 7, 128, 1000, 2051}, B in
 grouped matmul over E in {1, 16, 32}, M in {1, 2, 7, 200, 800}, four (d, f)
 widths and its three dtype routes (same tolerances); and the selective
 scan over B in {1, 4}, S in {1, 7, 128, 1000}, di in {64, 8192}, from a zero
-and a carried state (1e-4).  With
+and a carried state (1e-4); and the WKV scan over B in {1, 4}, S in {1, 7,
+64, 1000, 1421}, H in {4, 40}, hd in {16, 32, 64}, from a zero and a
+carried state (1e-4 of the plain version's largest value plus 1e-4).  With
 ``--profile`` the main-path and serve records also carry a
 ``torch.profiler`` breakdown of one more run (device busy time against wall
 time; full tables in ``chiprun_out/chip_smoke_profile*.txt``).  Any
@@ -109,6 +118,7 @@ SERVE_PHASES = {
     "serve": ("qwen3-8b", None, 12),
     "serve_hybrid": ("jamba-v0.1-52b", 8, 8),
     "serve_moe": ("granite-moe-1b-a400m", None, 8),
+    "serve_rwkv": ("rwkv6-3b", None, 8),
 }
 SERVE_PROMPT = (256, 1536)          # prompt lengths, inclusive
 SERVE_MAX_NEW = 16
@@ -136,6 +146,15 @@ SCAN_SWEEP = dict(B=(1, 4), S=(1, 7, 128, 1000), di=(64, 8192),
                   h0=(False, True))
 SCAN_DS = 16
 SCAN_TOL = 1e-4
+#: WKV sweep of phase 3 (``state``: from a zero or a carried state)
+WKV_SWEEP = dict(B=(1, 4), S=(1, 7, 64, 1000, 1421), H=(4, 40),
+                 hd=(16, 32, 64), state=(False, True))
+#: the WKV tolerance: |got - want| <= WKV_TOL * max|want| + WKV_TOL.  The
+#: reference's absolute 1e-4 holds only at its small inputs: at a served
+#: prefill (S ~ 1,400, r/k/v ~ N(0, 1), decay ~ 0.9975) |y| reaches
+#: hundreds, and tens of thousands on left-padded rows, where two f32
+#: summation orders differ by ~1e-7 of it
+WKV_TOL = 1e-4
 
 
 def emit(obj) -> None:
@@ -464,6 +483,69 @@ def check_mamba(dev) -> dict:
             "max_abs_err": worst}
 
 
+def wkv_inputs(gen, B, S, H, hd, dev, state: bool):
+    """r, k halved and v normal, as the reference's test; decays w =
+    exp(-exp(U(-6, 0))) from 0.37 to the slow 0.9975 of the model's init
+    (w0 = -6); u normal / 10; the state normal or none."""
+    import torch
+
+    def n(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    lw = torch.rand((B, S, H, hd), generator=gen, device=dev) * 6.0 - 6.0
+    return dict(r=n(B, S, H, hd) * 0.5, k=n(B, S, H, hd) * 0.5,
+                v=n(B, S, H, hd), w=torch.exp(-torch.exp(lw)),
+                u=n(H, hd) * 0.1, state0=n(B, H, hd, hd) if state else None)
+
+
+def wkv_close(y, st, want_y, want_st, what: str) -> float:
+    """Largest abs error of a WKV result, y (B, S, H, hd) and the final
+    state (B, H, hd, hd), against the plain one; raises unless every
+    element is within WKV_TOL of its own (batch, head)'s largest |plain|
+    plus WKV_TOL (a left-padded row's |y| may be 100x its neighbour's)."""
+    worst = 0.0
+    for got, want, dims, name in ((y, want_y, (1, 3), "y"),
+                                  (st, want_st, (2, 3), "state")):
+        err = (got - want).abs()
+        bound = WKV_TOL * want.abs().amax(dims, keepdim=True) + WKV_TOL
+        ratio = float((err / bound).max())
+        expect(ratio <= 1.0, f"{what} {name} differs from plain by "
+               f"{ratio} x its (batch, head)'s bound")
+        worst = max(worst, float(err.max()))
+    return worst
+
+
+def check_rwkv(dev) -> dict:
+    """The WKV kernel against its plain version over the sweep, y and the
+    final state, and once more with the state updated in place (the state
+    passed as the output too, as the decode does)."""
+    import itertools
+
+    import torch
+
+    from repro_torch.kernels.rwkv6_scan import rwkv6_wkv_cuda, rwkv6_wkv_ref
+    gen = torch.Generator(device=dev).manual_seed(16)
+    worst = 0.0
+    n = 0
+    for B, S, H, hd, state in itertools.product(
+            *(WKV_SWEEP[k] for k in ("B", "S", "H", "hd", "state"))):
+        a = wkv_inputs(gen, B, S, H, hd, dev, state)
+        y, st = rwkv6_wkv_cuda(**a)
+        want_y, want_st = rwkv6_wkv_ref(*(a[k] for k in "rkvwu"),
+                                        a["state0"])
+        torch.cuda.synchronize()
+        what = f"rwkv6_wkv B={B} S={S} H={H} hd={hd} state={state}"
+        worst = max(worst, wkv_close(y, st, want_y, want_st, what))
+        if state:
+            buf = a["state0"].clone()
+            y2, st2 = rwkv6_wkv_cuda(**{**a, "state0": buf}, state_out=buf)
+            torch.cuda.synchronize()
+            expect(st2 is buf and torch.equal(y2, y) and
+                   torch.equal(buf, st), what + " in place differs")
+        n += 1
+    return {"cases": n, "sweep": WKV_SWEEP, "tol": "1e-4 * max|plain| + "
+            "1e-4", "max_abs_err": worst}
+
+
 # ---------------------------------------------------------- 4. main path ----
 def fair_groups(log, rows_of):
     """Replay the runtime's coalescing on a dispatch log: consecutive
@@ -751,11 +833,12 @@ def layer_counts(cfg) -> dict:
     kinds = cfg.layer_kinds()
     attn = sum(m == "attn" for m, _ in kinds)
     mamba = sum(m == "mamba" for m, _ in kinds)
+    rwkv = sum(m == "rwkv" for m, _ in kinds)
     moe = sum(c == "moe" for _, c in kinds)
     return {"prefill": {"flash_attention": attn, "moe_gmm": 3 * moe,
-                        "mamba_ssm": mamba},
+                        "mamba_ssm": mamba, "rwkv6_wkv": rwkv},
             "decode": {"flash_attention": 0, "moe_gmm": 3 * moe,
-                       "mamba_ssm": mamba}}
+                       "mamba_ssm": mamba, "rwkv6_wkv": rwkv}}
 
 
 def serve_path(dev, card: Card, phase: str, cfg, requests: int,
@@ -771,12 +854,13 @@ def serve_path(dev, card: Card, phase: str, cfg, requests: int,
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.mamba_scan import mamba_ssm_cuda
     from repro_torch.kernels.moe_gmm import moe_gmm_cuda
+    from repro_torch.kernels.rwkv6_scan import rwkv6_wkv_cuda
     from repro_torch.kernels.vpc_datapath.kernel import vpc_datapath_cuda
     from repro_torch.models import apply_prefill, init_params
     from repro_torch.serving.engine import EngineConfig
 
     kernels = {"flash_attention": flash_attention_cuda, "moe_gmm": moe_gmm_cuda,
-               "mamba_ssm": mamba_ssm_cuda}
+               "mamba_ssm": mamba_ssm_cuda, "rwkv6_wkv": rwkv6_wkv_cuda}
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(SERVE_SEED)
     params = init_params(gen, cfg, device=dev)
@@ -807,6 +891,7 @@ def serve_path(dev, card: Card, phase: str, cfg, requests: int,
         kernel.launches = 0                  # this path's counts start here
     flash_attention_cuda.shapes.clear()
     moe_gmm_cuda.shapes.clear()
+    rwkv6_wkv_cuda.shapes.clear()
     t0 = time.perf_counter()
     reqs = [deps[o].inject(p, max_new=SERVE_MAX_NEW)
             for o, p in zip(owner, prompts)]
@@ -818,6 +903,7 @@ def serve_path(dev, card: Card, phase: str, cfg, requests: int,
     launches = {name: k.launches for name, k in kernels.items()}
     shapes = dict(flash_attention_cuda.shapes)
     gmm_shapes = dict(moe_gmm_cuda.shapes)
+    wkv_shapes = dict(rwkv6_wkv_cuda.shapes)
     other = vpc_datapath_cuda.launches + chacha20_xor_cuda.launches
     rep = plat.report()
 
@@ -843,16 +929,26 @@ def serve_path(dev, card: Card, phase: str, cfg, requests: int,
                f"{len(groups)} prefill groups + {per['decode'][name]} x "
                f"{steps} decode steps")
     expect(other == 0, f"the serve path launched VPC kernels {other}x")
-    # the attention kernel's own record of its (B, S): one launch per
-    # attention layer per group, at each group's longest prompt and a batch
-    # size that holds it
+    # the per-layer prefill kernel's own record of its (B, S): one launch
+    # per attention layer (with no attention, per RWKV layer) per group, at
+    # each group's longest prompt and a batch size that holds it; RWKV's
+    # decode launches are the (B, 1) entries, one per layer per step
     n_attn = per["prefill"]["flash_attention"]
-    shape_list = sorted((b, s) for (b, s), n in shapes.items()
-                        for _ in range(n // n_attn))
-    expect(all(n % n_attn == 0 for n in shapes.values()) and
+    n_wkv = per["prefill"]["rwkv6_wkv"]
+    expect(n_attn or n_wkv, f"{cfg.name}: no prefill kernel records shapes")
+    n_per, by_shape = (n_attn, shapes) if n_attn else (
+        n_wkv, {bs_s: n for bs_s, n in wkv_shapes.items() if bs_s[1] > 1})
+    shape_list = sorted((b, s) for (b, s), n in by_shape.items()
+                        for _ in range(n // n_per))
+    expect(all(n % n_per == 0 for n in by_shape.values()) and
            sorted(s for _, s in shape_list) ==
            sorted(max(len(r.prompt) for r in g) for g in groups),
-           f"kernel shapes {shapes} do not match the prefill groups")
+           f"kernel shapes {by_shape} do not match the prefill groups")
+    if n_wkv:
+        decode_launches = sum(n for (_, s), n in wkv_shapes.items() if s == 1)
+        expect(decode_launches == per["decode"]["rwkv6_wkv"] * steps,
+               f"rwkv6_wkv decode launches {decode_launches} != "
+               f"{per['decode']['rwkv6_wkv']} x {steps} decode steps")
     # the largest group once more, from its requests: each launch of each
     # kernel against its plain version on the same inputs (the path's real
     # activations), then the logits against a prefill with every kernel
@@ -864,6 +960,8 @@ def serve_path(dev, card: Card, phase: str, cfg, requests: int,
     # says), and one such flip moves the logits far more than the kernels'
     # rounding does.  A third all-plain prefill routes on its own; its
     # logits and the tokens whose experts differ are reported beside.
+    # Without attention the plain prefill is the all-plain one; RWKV's
+    # logits take their own gates (:func:`rwkv_gates`).
     bs, S = max(shape_list)
     group = next(g for g in groups if max(len(r.prompt) for r in g) == S)
     expect(len(group) <= bs, f"a group of {len(group)} in batch {bs}")
@@ -885,8 +983,8 @@ def serve_path(dev, card: Card, phase: str, cfg, requests: int,
         pinned = routed(cfg, pinned=routes["kernels"])
         want = prefill_logits(params, cfg, tokens, {**fallback,
                                                     "route": pinned})
-        plain = prefill_logits(params, cfg, tokens, {**plain_ops,
-                                                     "route": pinned})
+        plain = prefill_logits(params, cfg, tokens, {
+            **plain_ops, "route": pinned}) if n_attn else want
         free = prefill_logits(params, cfg, tokens, {
             **fallback, "route": routed(cfg, record=routes["plain"])}) \
             if cfg.n_experts else want
@@ -919,9 +1017,13 @@ def serve_path(dev, card: Card, phase: str, cfg, requests: int,
     # element-wise, one bf16 step in one layer grows through the bf16
     # layers past the reference's 3e-2 (two plain versions differ as much),
     # so the logits are held to it relative to their own scale
-    expect(logits["max_abs_err"] <= FA_TOL["torch.bfloat16"] * scale,
-           f"prefill logits with the kernels differ from the all-plain "
-           f"prefill's (same experts) beyond 3e-2 of their scale: {logits}")
+    held = [("bf16", diff(got, want), FA_TOL["torch.bfloat16"] * scale)]
+    if n_wkv:
+        held = rwkv_gates(params, cfg, tokens, got, want, logits)
+    for what, err, limit in held:
+        expect(err <= limit, f"prefill logits ({what}) with the kernels "
+               f"differ from the all-plain prefill's (same experts) by "
+               f"{err} > {limit}: {logits}")
 
     ttft = [r.t_first - r.t_submit for r in reqs]
     record = {
@@ -951,21 +1053,22 @@ def serve_path(dev, card: Card, phase: str, cfg, requests: int,
     # the typical prefill shape: the most frequent batch size, then the
     # median prompt length among its groups; the kernels line times the
     # attention kernel there and the others at the checked group's shape
-    by_bs: dict[int, list] = {}
-    for b, s in shape_list:
-        by_bs.setdefault(b, []).append(s)
-    common = max(by_bs, key=lambda b: (len(by_bs[b]), b))
-    s_med = sorted(by_bs[common])[len(by_bs[common]) // 2]
-    H, Kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    cdt = "torch." + cfg.compute_dtype
-    typical["flash_attention"] = fa_inputs(rng, common, s_med, H, Kv, hd,
-                                           cdt, dev)
-    per_group = [cuda_ms(raw_flash(*fa_inputs(rng, b, s, H, Kv, hd, cdt,
-                                              dev)), 10)
-                 for b, s in shape_list]
-    record["flash_attention_ms_per_run"] = n_attn * sum(per_group)
-    record["flash_attention_share_of_run"] = \
-        record["flash_attention_ms_per_run"] / (wall * 1e3)
+    if n_attn:
+        by_bs: dict[int, list] = {}
+        for b, s in shape_list:
+            by_bs.setdefault(b, []).append(s)
+        common = max(by_bs, key=lambda b: (len(by_bs[b]), b))
+        s_med = sorted(by_bs[common])[len(by_bs[common]) // 2]
+        H, Kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        cdt = "torch." + cfg.compute_dtype
+        typical["flash_attention"] = fa_inputs(rng, common, s_med, H, Kv, hd,
+                                               cdt, dev)
+        per_group = [cuda_ms(raw_flash(*fa_inputs(rng, b, s, H, Kv, hd, cdt,
+                                                  dev)), 10)
+                     for b, s in shape_list]
+        record["flash_attention_ms_per_run"] = n_attn * sum(per_group)
+        record["flash_attention_share_of_run"] = \
+            record["flash_attention_ms_per_run"] / (wall * 1e3)
     if gmm_shapes:           # the most frequent launch: a decode step's
         typical["moe_gmm_decode_rows"] = max(gmm_shapes,
                                              key=gmm_shapes.get)[1]
@@ -1004,6 +1107,7 @@ def checked_kernels(errs: dict, typical: dict) -> dict:
                                                      flash_attention_cuda)
     from repro_torch.kernels.mamba_scan import mamba_ssm_cuda, mamba_ssm_ref
     from repro_torch.kernels.moe_gmm import moe_gmm_cuda, moe_gmm_ref
+    from repro_torch.kernels.rwkv6_scan import rwkv6_wkv_cuda, rwkv6_wkv_ref
 
     def attention(q, k, v):
         out = flash_attention_cuda(q, k, v, True)
@@ -1026,7 +1130,68 @@ def checked_kernels(errs: dict, typical: dict) -> dict:
         typical.setdefault("mamba_ssm", dict(x=x, dt=dt, Bmat=Bmat,
                                              Cmat=Cmat, A=A, D=D))
         return y, h
-    return {"attention": attention, "gmm": gmm, "scan": scan}
+
+    def wkv(r, k, v, w, u):
+        y, st = rwkv6_wkv_cuda(r, k, v, w, u)
+        want_y, want_st = rwkv6_wkv_ref(r, k, v, w, u)
+        errs["rwkv6_wkv"].append(
+            wkv_close(y, st, want_y, want_st, "rwkv6_wkv"))
+        typical.setdefault("rwkv6_wkv", dict(r=r, k=k, v=v, w=w, u=u))
+        return y, st
+    return {"attention": attention, "gmm": gmm, "scan": scan, "wkv": wkv}
+
+
+def rwkv_gates(params, cfg, tokens, got, want, logits: dict) -> list:
+    """The RWKV path's logit gates for the checked group, as (what, error,
+    limit).  Through 32 random bf16 RWKV layers the served logits cannot be
+    held to 3e-2 of their scale: any two f32 scans a rounding apart flip
+    bf16 roundings of the group-norm output in every layer, and every
+    token's k v stays in the state (decay ~0.9975 a step) for hundreds of
+    tokens.  So the kernel prefill is held to the all-plain one at 3e-2 of
+    scale with the model computing in f32, where nothing rounds to bf16,
+    and two faulty scans, one all in bf16 (state included) and one without
+    the bonus term (u = 0), must fail that gate; the bf16 logits are held
+    to twice the spread between the all-plain prefill and one whose scan
+    runs in f64.  Adds each reading to ``logits``."""
+    import torch
+
+    from repro_torch.kernels.rwkv6_scan import rwkv6_wkv_cuda, rwkv6_wkv_ref
+
+    def plain_in(dtype, bonus: bool = True):
+        def wkv(r, k, v, w, u):
+            u = u if bonus else torch.zeros_like(u)
+            y, st = rwkv6_wkv_ref(*(a.to(dtype) for a in (r, k, v, w, u)))
+            return y.float(), st.float()
+        return wkv
+
+    def diff(a, b):
+        return float((a.float() - b.float()).abs().max())
+    cfg32 = cfg.replace(compute_dtype="float32")
+    with torch.inference_mode():
+        f64 = prefill_logits(params, cfg, tokens,
+                             {"wkv": plain_in(torch.float64)})
+        want32 = prefill_logits(params, cfg32, tokens, {"wkv": rwkv6_wkv_ref})
+        got32 = prefill_logits(params, cfg32, tokens, {"wkv": rwkv6_wkv_cuda})
+        faulty = {name: prefill_logits(params, cfg32, tokens, {"wkv": fn})
+                  for name, fn in (
+                      ("bf16_scan", plain_in(torch.bfloat16)),
+                      ("no_bonus", plain_in(torch.float32, bonus=False)))}
+    scale32 = float(want32.abs().max())
+    limit32 = FA_TOL["torch.bfloat16"] * scale32
+    spread = diff(f64, want)
+    logits["f64_scan_plain_max_abs_err"] = spread
+    logits["f64_scan_plain_rel_err"] = spread / logits["max_abs"]
+    logits["float32_compute"] = {
+        "max_abs": scale32, "max_abs_err": diff(got32, want32),
+        "rel_err": diff(got32, want32) / scale32,
+        "faulty_scans_rel_err": {n: diff(f, want32) / scale32
+                                 for n, f in faulty.items()}}
+    for name, f in faulty.items():
+        expect(diff(f, want32) > limit32, f"the float32-compute gate passes "
+               f"a faulty scan ({name}): {logits['float32_compute']}")
+    return [("float32 compute", diff(got32, want32), limit32),
+            ("bf16, against twice the f64-scan spread", diff(got, want),
+             2.0 * spread)]
 
 
 def plain_kernels() -> dict:
@@ -1035,8 +1200,9 @@ def plain_kernels() -> dict:
     from repro_torch.kernels.flash_attention import attention_ref
     from repro_torch.kernels.mamba_scan import mamba_ssm_ref
     from repro_torch.kernels.moe_gmm import moe_gmm_ref
+    from repro_torch.kernels.rwkv6_scan import rwkv6_wkv_ref
     return {"attention": lambda q, k, v: attention_ref(q, k, v, True),
-            "gmm": moe_gmm_ref, "scan": mamba_ssm_ref}
+            "gmm": moe_gmm_ref, "scan": mamba_ssm_ref, "wkv": rwkv6_wkv_ref}
 
 
 def routed(cfg, record: dict | None = None, pinned: dict | None = None):
@@ -1065,10 +1231,12 @@ def prefill_logits(params, cfg, tokens, ops):
     """``apply_prefill``'s logits (no cache kept), composed here from the
     model's own pieces with the kernels passed in ``ops``:
     ``attention(q, k, v)``, ``gmm(x, w)``, ``scan(x, dt, B, C, A, D) -> (y,
-    h)`` and ``route(layer, p, x) -> (gates, idx)``.  With the kernels
-    themselves it must equal ``apply_prefill`` bit for bit."""
+    h)``, ``wkv(r, k, v, w, u) -> (y, state)`` and ``route(layer, p, x) ->
+    (gates, idx)``.  With the kernels themselves it must equal
+    ``apply_prefill`` bit for bit."""
     import torch
 
+    from repro_torch.models import rwkv6 as R
     from repro_torch.models.attention import _project_qkv
     from repro_torch.models.layers import linear, mlp, norm_apply
     from repro_torch.models.model import embed_inputs
@@ -1078,18 +1246,25 @@ def prefill_logits(params, cfg, tokens, ops):
     pos = pos.expand(B, S)
     for i, lp in enumerate(params["layers"]):
         h = norm_apply(cfg.norm, lp["norm1"], x)
-        if cfg.mixer_kind(i) == "attn":
+        mix, ch = cfg.mixer_kind(i), cfg.channel_kind(i)
+        if mix == "attn":
             q, k, v = _project_qkv(lp["attn"], h, cfg, pos)
             h = linear(lp["attn"]["wo"],
                        ops["attention"](q, k, v).reshape(B, S, -1))
-        else:
+        elif mix == "mamba":
             h = mamba_prefill(lp["mamba"], h, cfg, ops["scan"])
+        else:           # RWKV time mix from a zero state, the scan passed in
+            r, k, v, w, u, g = R.timemix_inputs(lp["rwkv_tm"], h, cfg)
+            h = R.timemix_out(lp["rwkv_tm"], h, cfg,
+                              ops["wkv"](r, k, v, w, u)[0], g)
         x = x + h
         h = norm_apply(cfg.norm, lp["norm2"], x)
-        if cfg.channel_kind(i) == "mlp":
+        if ch == "mlp":
             x = x + mlp(lp["mlp"], h, cfg.mlp_kind)
-        else:
+        elif ch == "moe":
             x = x + moe_prefill(lp["moe"], h, cfg, ops, i)
+        else:
+            x = x + R.channelmix_apply(lp["rwkv_cm"], h, cfg)[0]
     x = norm_apply(cfg.norm, params["final_norm"], x[:, -1:, :])
     return linear(params["head"], x)[:, 0, :]
 
@@ -1319,6 +1494,67 @@ def scan_line(card: Card, typical, launches: int, path: str) -> dict:
                        "bound_ms": d_bound, "bound_by": d_by}}
 
 
+def raw_wkv(a: dict):
+    import torch
+    B, S, H, hd = a["r"].shape
+    y = torch.empty_like(a["r"])
+    st = torch.empty((B, H, hd, hd), dtype=torch.float32,
+                     device=a["r"].device)
+    s0 = a.get("state0")
+    return raw_launch("rwkv6_scan", "rwkv6_wkv_launch", [
+        a["r"].data_ptr(), a["k"].data_ptr(), a["v"].data_ptr(),
+        a["w"].data_ptr(), a["u"].data_ptr(),
+        None if s0 is None else s0.data_ptr(), y.data_ptr(), st.data_ptr(),
+        B, S, H, hd, torch.cuda.current_stream().cuda_stream], (a, y, st))
+
+
+def wkv_bound(card: Card, B: int, S: int, H: int, hd: int, state0: bool):
+    """Bytes: r, k, v, w in and y out (B, S, H, hd), u, the final state and
+    state0 when given, f32 each.  Work at the f32 rate: per (b, t, h, i, j)
+    5 operations (r^T S: a product and a sum; the update w S + k v: two
+    products and a sum), and per (b, t, h) 5 hd more for the bonus term,
+    r^T diag(u) k v^T = (sum_i r_i u_i k_i) v_j (two products and a sum
+    per i, a product and a sum per j)."""
+    nbytes = 4 * (5 * B * S * H * hd + H * hd
+                  + (2 if state0 else 1) * B * H * hd * hd)
+    flops = 5 * B * S * H * hd * (hd + 1)
+    bound, by = card.bound(nbytes, flops, PEAK_FLOPS["torch.float32"])
+    return bound, by, nbytes, flops
+
+
+def wkv_line(card: Card, typical, launches: int, path: str) -> dict:
+    """The WKV kernel at the checked prefill group's first RWKV layer (the
+    path's own activations, from a zero state) and at a decode step of that
+    batch (one step from a carried state)."""
+    import torch
+
+    from repro_torch.kernels.rwkv6_scan import rwkv6_wkv_cuda, rwkv6_wkv_ref
+    a = typical["rwkv6_wkv"]
+    B, S, H, hd = a["r"].shape
+    y, st = rwkv6_wkv_cuda(**a)
+    want_y, want_st = rwkv6_wkv_ref(**a)
+    err = wkv_close(y, st, want_y, want_st, "rwkv6_wkv")
+    bound, by, nbytes, flops = wkv_bound(card, B, S, H, hd, False)
+    dec = {k: (v[:, -1:].contiguous() if k in ("r", "k", "v", "w") else v)
+           for k, v in a.items()}
+    dec["state0"] = st
+    d_bound, d_by, _, _ = wkv_bound(card, B, 1, H, hd, True)
+    return {"name": "rwkv6_wkv", "route": "cuda",
+            "source": "src/repro_torch/csrc/rwkv6_scan.cu",
+            "replaces": "src/repro/kernels/rwkv6_scan/kernel.py:59",
+            "path": path, "launches": launches,
+            "shape": {"B": B, "S": S, "H": H, "hd": hd, "state0": False},
+            "max_abs_err": err, "max_abs_y": float(want_y.abs().max()),
+            "ms": cuda_ms(raw_wkv(a), 10),
+            "call_ms": cuda_ms(lambda: rwkv6_wkv_cuda(**a), 5),
+            "plain_ms": cuda_ms(lambda: rwkv6_wkv_ref(**a), 1),
+            "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+            "flops": flops, "library_ms": None,
+            "library": "none: no single PyTorch call",
+            "decode": {"S": 1, "ms": cuda_ms(raw_wkv(dec), 50),
+                       "bound_ms": d_bound, "bound_by": d_by}}
+
+
 def free_device() -> None:
     """Release a finished phase's tensors before the next phase's weights
     are drawn."""
@@ -1373,7 +1609,7 @@ def main() -> int:
           "vpc_datapath": check_vpc(dev), "bit_exact": True,
           "flash_attention": check_flash(dev),
           "moe_gmm": check_moe_gmm(dev), "mamba_ssm": check_mamba(dev),
-          "seconds": time.perf_counter() - t0})
+          "rwkv6_wkv": check_rwkv(dev), "seconds": time.perf_counter() - t0})
     free_device()
 
     record, args, launches = main_path(dev, card, profile=profile)
@@ -1405,11 +1641,15 @@ def main() -> int:
                                         phase)
             lines["mamba_ssm"] = scan_line(card, typical,
                                            launches["mamba_ssm"], phase)
+        if phase == "serve_rwkv":
+            lines["rwkv6_wkv"] = wkv_line(card, typical,
+                                          launches["rwkv6_wkv"], phase)
         del record, typical
         free_device()
 
     emit({"kernels": [vpc, chacha, lines["flash_attention"],
-                      lines["moe_gmm"], lines["mamba_ssm"]]})
+                      lines["moe_gmm"], lines["mamba_ssm"],
+                      lines["rwkv6_wkv"]]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": card.name,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -51,6 +51,11 @@ SIGNATURES: dict[str, dict[str, tuple[list, type]]] = {
             [_P, _P, _P, _I64, _I64, _I64, _I64, _INT, _INT, _P], _INT),
         "moe_gmm_smem_bytes": ([], _I64),
     },
+    "rwkv6_scan": {
+        "rwkv6_wkv_launch": (
+            [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
+            _INT),
+    },
     "vpc_datapath": {
         "vpc_datapath_launch": (
             [_P, _P, _P, _P, _P, _P, _P, _U32, _P, _P, _P, _I64, _I64, _P],

@@ -1,4 +1,4 @@
 """Model definitions of the port: serving (prefill and decode) of dense,
-MoE and hybrid Mamba decoders."""
+MoE, hybrid Mamba and RWKV-6 decoders."""
 from .model import (apply_decode, apply_prefill, init_cache,  # noqa: F401
                     init_params)

@@ -7,21 +7,22 @@ Entry points:
   - ``apply_decode(params, cfg, cache, batch, pos)`` -> (logits, cache)
   - ``init_cache(cfg, B, max_len, dtype, device)``   decode-state list
 
-Layer structure as in the JAX package: a pre-norm mixer (attention or
-Mamba) with residual, then a pre-norm channel (MLP or MoE) with residual,
-each layer's kinds from ``cfg.mixer_kind(i)`` / ``cfg.channel_kind(i)``;
-dense, MoE (Granite) and hybrid (Jamba) stacks all run.  Differences that
-change no result:
+Layer structure as in the JAX package: a pre-norm mixer (attention,
+Mamba or RWKV time mix) with residual, then a pre-norm channel (MLP, MoE or
+RWKV channel mix) with residual, each layer's kinds from
+``cfg.mixer_kind(i)`` / ``cfg.channel_kind(i)``; dense, MoE (Granite),
+hybrid (Jamba) and RWKV-6 stacks all run.  Differences that change no
+result:
   - layers are always a list; the JAX package stacks homogeneous layers for
     ``lax.scan`` (:func:`repro_torch.convert.model_params_from_numpy` takes
     either layout);
   - ``repro.parallel.ctx.constrain_acts`` is a no-op on one device and is
     dropped;
-  - ``apply_decode`` updates the caches in place and returns them: the KV
-    cache rows, the conv state, and the SSM state, which the scan kernel
-    writes where it read it.
-The RWKV mixer and channel raise ``NotImplementedError`` naming their
-ROADMAP slice; training (``apply_train``) is the training slice.
+  - ``apply_prefill`` and ``apply_decode`` write the caches in place and
+    return them: the KV cache rows, the conv state and the SSM state, the
+    RWKV (hd, hd) state (each scan kernel writes its final state where it
+    read the carried one) and the RWKV blocks' last tokens.
+Training (``apply_train``) is the training slice.
 """
 from __future__ import annotations
 
@@ -34,26 +35,15 @@ from repro_torch import _device
 from . import attention as A
 from . import mamba as M
 from . import moe as X
+from . import rwkv6 as R
 from .layers import (embed, embed_init, linear, linear_init, mlp, mlp_init,
                      norm_apply, norm_init)
 
 Params = Any
 
-#: layer kinds of other model families -> the ROADMAP slice that ports them
-_SLICES = {"rwkv": "the RWKV-6 slice (rwkv6_wkv)",
-           "rwkv_cm": "the RWKV-6 slice (rwkv6_wkv)"}
-
 #: config dtype names -> torch dtypes
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
-
-
-def _ported_only(cfg, i: int) -> None:
-    for kind in (cfg.mixer_kind(i), cfg.channel_kind(i)):
-        if kind in _SLICES:
-            raise NotImplementedError(
-                f"{cfg.name}: layer {i} kind {kind!r} is not ported yet: "
-                f"ROADMAP Queue 1, {_SLICES[kind]}")
 
 
 def _generator(gen, device) -> torch.Generator:
@@ -66,39 +56,57 @@ def _generator(gen, device) -> torch.Generator:
 
 # ================================================================= layers ====
 def layer_init(gen, cfg, i: int, dtype, device=None):
-    _ported_only(cfg, i)
     kw = dict(dtype=dtype, device=device)
+    mix, ch = cfg.mixer_kind(i), cfg.channel_kind(i)
     p = {"norm1": norm_init(cfg.norm, cfg.d_model, **kw),
          "norm2": norm_init(cfg.norm, cfg.d_model, **kw)}
-    if cfg.mixer_kind(i) == "attn":
+    if mix == "attn":
         p["attn"] = A.attn_init(gen, cfg, **kw)
-    else:
+    elif mix == "mamba":
         p["mamba"] = M.mamba_init(gen, cfg, **kw)
-    if cfg.channel_kind(i) == "mlp":
-        p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_kind, **kw)
     else:
+        p["rwkv_tm"] = R.timemix_init(gen, cfg, **kw)
+    if ch == "mlp":
+        p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_kind, **kw)
+    elif ch == "moe":
         p["moe"] = X.moe_init(gen, cfg, **kw)
+    else:
+        p["rwkv_cm"] = R.channelmix_init(gen, cfg, **kw)
     return p
 
 
 def layer_cache_init(cfg, i: int, B: int, max_len: int, dtype, device=None):
-    _ported_only(cfg, i)
-    if cfg.mixer_kind(i) == "attn":
+    mix = cfg.mixer_kind(i)
+    if mix == "attn":
         shape = (B, max_len, cfg.n_kv_heads, cfg.hd)
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
-    di = cfg.mamba_expand * cfg.d_model
-    return {"conv": torch.zeros((B, cfg.mamba_d_conv - 1, di), dtype=dtype,
-                                device=device),
-            "ssm": torch.zeros((B, di, cfg.mamba_d_state),
-                               dtype=torch.float32, device=device)}
+    if mix == "mamba":
+        di = cfg.mamba_expand * cfg.d_model
+        return {"conv": torch.zeros((B, cfg.mamba_d_conv - 1, di),
+                                    dtype=dtype, device=device),
+                "ssm": torch.zeros((B, di, cfg.mamba_d_state),
+                                   dtype=torch.float32, device=device)}
+    H, hd = cfg.rwkv_heads, cfg.rwkv_head_size      # max_len is not used
+    return {"x_tm": torch.zeros((B, cfg.d_model), dtype=dtype, device=device),
+            "x_cm": torch.zeros((B, cfg.d_model), dtype=dtype, device=device),
+            "wkv": torch.zeros((B, H, hd, hd), dtype=torch.float32,
+                               device=device)}
 
 
-def _channel(p, x, cfg, i: int):
+def _channel(p, x, cfg, i: int, cache):
+    """The channel half of layer i; the RWKV channel mix reads the previous
+    token from ``cache["x_cm"]`` (zero after ``layer_cache_init``) and
+    writes its input's last token there."""
     h = norm_apply(cfg.norm, p["norm2"], x)
-    if cfg.channel_kind(i) == "mlp":
+    ch = cfg.channel_kind(i)
+    if ch == "mlp":
         return x + mlp(p["mlp"], h, cfg.mlp_kind)
-    h, _ = X.moe_apply(p["moe"], h, cfg)
+    if ch == "moe":
+        h, _ = X.moe_apply(p["moe"], h, cfg)
+        return x + h
+    h, x_last = R.channelmix_apply(p["rwkv_cm"], h, cfg, cache["x_cm"])
+    cache["x_cm"].copy_(x_last)
     return x + h
 
 
@@ -106,14 +114,19 @@ def layer_decode(p, cache, x, cfg, i: int, pos: int):
     """Single-token step. x: (B, 1, d); pos: int. -> (x, cache), the
     cache's tensors updated in place."""
     h = norm_apply(cfg.norm, p["norm1"], x)
-    if cfg.mixer_kind(i) == "attn":
+    mix = cfg.mixer_kind(i)
+    if mix == "attn":
         h, _, _ = A.attn_decode(p["attn"], h, cfg, cache["k"], cache["v"],
                                 pos)
-    else:
+    elif mix == "mamba":
         h, (conv, _) = M.mamba_apply(p["mamba"], h, cfg, cache["conv"],
                                      cache["ssm"])
         cache["conv"].copy_(conv)
-    return _channel(p, x + h, cfg, i), cache
+    else:
+        h, (x_last, _) = R.timemix_apply(p["rwkv_tm"], h, cfg, cache["x_tm"],
+                                         cache["wkv"])
+        cache["x_tm"].copy_(x_last)
+    return _channel(p, x + h, cfg, i, cache), cache
 
 
 # ================================================================== model ====
@@ -179,15 +192,20 @@ def apply_prefill(params, cfg, batch, max_len: int | None = None):
     for i, lp in enumerate(params["layers"]):
         lc = layer_cache_init(cfg, i, B, max_len, cdt, x.device)
         h = norm_apply(cfg.norm, lp["norm1"], x)
-        if cfg.mixer_kind(i) == "attn":
+        mix = cfg.mixer_kind(i)
+        if mix == "attn":
             h, (k, v) = A.attn_prefill(lp["attn"], h, cfg, positions)
             lc["k"][:, :S] = k.to(cdt)
             lc["v"][:, :S] = v.to(cdt)
-        else:
+        elif mix == "mamba":
             h, (conv, _) = M.mamba_apply(lp["mamba"], h, cfg,
                                          ssm_state=lc["ssm"])
             lc["conv"].copy_(conv)
-        x = _channel(lp, x + h, cfg, i)
+        else:
+            h, (x_last, _) = R.timemix_apply(lp["rwkv_tm"], h, cfg,
+                                             state=lc["wkv"])
+            lc["x_tm"].copy_(x_last)
+        x = _channel(lp, x + h, cfg, i, lc)
         cache.append(lc)
     x = norm_apply(cfg.norm, params["final_norm"], x[:, -1:, :])
     logits = linear(params["head"], x)[:, 0, :]

@@ -109,12 +109,16 @@ def layer_cache(cache, i, key, scan):
     return cache[key][i] if scan else cache[i][key]
 
 
+#: each mixer kind's decode state
+CACHE_KEYS = {"attn": ("k", "v"), "mamba": ("conv", "ssm"),
+              "rwkv": ("x_tm", "x_cm", "wkv")}
+
+
 def assert_caches(tc, jc, cfg, scan):
     """Every layer's decode state: K/V rows, the conv state and the f32 SSM
-    state."""
+    state, the RWKV blocks' last tokens and f32 WKV state."""
     for i, (mix, _) in enumerate(cfg.layer_kinds()):
-        keys = ("k", "v") if mix == "attn" else ("conv", "ssm")
-        for key in keys:
+        for key in CACHE_KEYS[mix]:
             np.testing.assert_allclose(
                 tc[i][key].float().numpy(),
                 np.asarray(layer_cache(jc, i, key, scan), np.float32),
@@ -129,6 +133,21 @@ def test_moe_and_hybrid_prefill_and_decode_match_jax(arch, scan, n_layers):
     cfg = jconfigs.get_tiny_config(arch).replace(scan_layers=scan)
     if n_layers:
         cfg = cfg.replace(n_layers=n_layers)
+    check_steps_and_caches(cfg, scan)
+
+
+@pytest.mark.parametrize("scan", [False, True])
+def test_rwkv_prefill_and_decode_match_jax(scan):
+    """Tiny rwkv6-3b in both layer layouts (its tiny config lists the
+    layers, the full one stacks them): logits within 1e-4, the same greedy
+    tokens, and every layer's ``x_tm``, ``x_cm`` and ``wkv`` within 1e-4
+    after the prefill and after the last decode step.  The left pad tokens
+    enter the recurrent state, as they do in the JAX package."""
+    cfg = jconfigs.get_tiny_config("rwkv6-3b").replace(scan_layers=scan)
+    check_steps_and_caches(cfg, scan)
+
+
+def check_steps_and_caches(cfg, scan):
     jp = JM.init_params(jax.random.PRNGKey(11), cfg)
     assert isinstance(jp["layers"], dict) == scan     # both JAX layouts
     tp = ported(jp, cfg)
@@ -151,6 +170,7 @@ def test_moe_and_hybrid_prefill_and_decode_match_jax(arch, scan, n_layers):
         assert_logits(tl, jl)
         jt = jnp.argmax(jl, -1).astype(jnp.int32)
         tt = torch.argmax(tl, -1).to(torch.int32)
+    np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
     assert_caches(tc, jc, cfg, scan)
 
 
@@ -198,10 +218,15 @@ def test_configs_match_jax():
         8_190_427_136
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-3b"])
+@pytest.mark.parametrize("arch", ["qwen2-vl-2b"])
 def test_other_families_raise_naming_their_slice(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.init_params(0, configs.get_tiny_config(arch), device=CPU)
+    """Qwen2-VL's multimodal RoPE (``apply_mrope``) is the one serving piece
+    not ported yet: a prefill reaches it and raises naming its slice."""
+    cfg = configs.get_tiny_config(arch)
+    params = TM.init_params(0, cfg, device=CPU)
+    embeds = torch.zeros((1, 4, cfg.d_model))
+    with pytest.raises(NotImplementedError, match="ROADMAP.*VLM serving"):
+        TM.apply_prefill(params, cfg, {"embeds": embeds})
 
 
 def test_init_params_shapes_dtypes_and_default_device():
@@ -211,6 +236,14 @@ def test_init_params_shapes_dtypes_and_default_device():
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "jamba-v0.1-52b"])
 def test_init_params_moe_and_hybrid_shapes_dtypes(arch):
     check_init_params(configs.get_tiny_config(arch).replace(n_layers=8))
+
+
+def test_init_params_rwkv_shapes_dtypes():
+    check_init_params(configs.get_tiny_config("rwkv6-3b"))
+    cfg = configs.get_config("rwkv6-3b")
+    assert cfg.param_counts()["total"] == 3_099_033_600
+    assert (cfg.n_layers, cfg.d_model, cfg.rwkv_heads, cfg.rwkv_head_size,
+            cfg.compute_dtype) == (32, 2560, 40, 64, "bfloat16")
 
 
 def check_init_params(cfg):
@@ -383,7 +416,16 @@ def test_engine_scenario_moe_and_hybrid_match_jax(arch):
     """Tokens, the cache hit, the ``active_bs`` trajectory and the compile
     log of the port's engine against the JAX engine, on the MoE and hybrid
     tiny configs."""
-    cfg = jconfigs.get_tiny_config(arch)
+    check_mixed_scenario(jconfigs.get_tiny_config(arch))
+
+
+def test_engine_scenario_rwkv_matches_jax():
+    """The same scenario on tiny rwkv6-3b: the engine batches, pads and
+    decodes RWKV's constant-size state without looking inside it."""
+    check_mixed_scenario(jconfigs.get_tiny_config("rwkv6-3b"))
+
+
+def check_mixed_scenario(cfg):
     je, te = engines(cfg, dict(batch_sizes=(1, 2, 4), max_len=32,
                                epoch_requests=6), seed=13)
     runs = []
@@ -493,6 +535,17 @@ def test_serve_backend_hybrid_through_platform_matches_jax():
     assert reports[1]["tenants"]["free"][1] == 1
 
 
+def test_serve_backend_rwkv_through_platform_matches_jax():
+    """Tiny rwkv6-3b behind the Platform: the same tokens, cache hits and
+    compile log as the JAX package."""
+    cfg = jconfigs.get_tiny_config("rwkv6-3b")
+    reports = platform_reports(cfg, JM.init_params(jax.random.PRNGKey(9),
+                                                   cfg))
+    assert reports[1] == reports[0]
+    assert reports[1]["cache"][0] == 1
+    assert reports[1]["tenants"]["free"][1] == 1
+
+
 def test_serve_cache_setting_conflict_rejected():
     """The response cache is engine-wide: a second deployment that
     disagrees must fail loudly, not silently reconfigure tenant A."""
@@ -523,7 +576,8 @@ def test_isolation_scan_covers_the_serving_slice():
               "models.model", "serving.engine", "api.serve_backend",
               "kernels.flash_attention.kernel",
               "kernels.flash_attention.ops", "kernels.flash_attention.ref",
-              "models.moe", "models.mamba",
-              *(f"kernels.{k}.{m}" for k in ("moe_gmm", "mamba_scan")
+              "models.moe", "models.mamba", "models.rwkv6",
+              *(f"kernels.{k}.{m}"
+                for k in ("moe_gmm", "mamba_scan", "rwkv6_scan")
                 for m in ("kernel", "ops", "ref"))):
         assert f"repro_torch.{m}" in found, m
