@@ -51,9 +51,30 @@ prints one JSON line per phase:
                  on its own are counted, with that prefill's logits.  Prints
                  tokens/s, time to first token, completions, cache hits,
                  peak memory, launches and the layer cut (``reduced``);
-  7. the ``{"kernels": [...]}`` line: per kernel its launches on its path,
-     time, plain time, bound and, where one PyTorch call computes the same
-     function, that call's time;
+  7. train — ``Trainer(cfg, compress="int8")`` on qwen3-8b at full width
+                 cut to 8 layers (``reduced``), weights random f32 from a
+                 seeded generator, batch 1 x 4,096, lr 3e-4, 5 steps.
+                 ``train_gates`` first, on their own weights: one step's
+                 loss and whole gradient in f32 compute with the kernels
+                 against every kernel replaced by its plain version (1e-5
+                 relative, 1e-4 relative L2), where the LSE handed to the
+                 backward shifted by log 2 must fail; in bf16 compute the
+                 gradient within twice the spread of two plain routes that
+                 differ only in rounding.  ``train_step1``: every flash
+                 launch of one forward (out and LSE) against its plain
+                 version, every quantize and dequantize launch of the
+                 Trainer's step 1 bit for bit, and the params, moments and
+                 EF after it equal to the same step with plain compression
+                 on the same gradients.  Then the run: exact launches per
+                 step (91 quantize, 91 dequantize, 16 flash attention),
+                 finite losses and gradient norms, the median step seconds
+                 of steps 2-5, tokens/s, model FLOP and MFU, the
+                 compression's device ms and share, peak memory; and a
+                 small crash/restart on the card (head_dim 64,
+                 ``compress="none"``);
+  8. the ``{"kernels": [...]}`` line: per kernel (all eight) its launches
+     on its path, time, plain time, bound and, where one PyTorch call
+     computes the same function, that call's time;
 and last ``{"ok": true, "device": {...}}``.  Phase 3 also holds the
 flash-attention kernel against its plain version over causal and not,
 G in {1, 2, 4, 8}, hd in {64, 128}, S in {1, 7, 128, 1000, 2051}, B in
@@ -63,16 +84,22 @@ widths and its three dtype routes (same tolerances); and the selective
 scan over B in {1, 4}, S in {1, 7, 128, 1000}, di in {64, 8192}, from a zero
 and a carried state (1e-4); and the WKV scan over B in {1, 4}, S in {1, 7,
 64, 1000, 1421}, H in {4, 40}, hd in {16, 32, 64}, from a zero and a
-carried state (1e-4 of the plain version's largest value plus 1e-4).  With
+carried state (1e-4 of the plain version's largest value plus 1e-4); the
+flash kernel's LSE beside its output; and the quantize pair bit for bit
+over R in {1, 3, 256}, D in {1, 127, 4,097, 1,048,576}, f32 and bf16 in
+and out, one 622,329,856-element row, an all-zero row, one 1e30 among
+1e-30s and a view at an odd element offset.  With
 ``--profile`` the main-path and serve records also carry a
 ``torch.profiler`` breakdown of one more run (device busy time against wall
-time; full tables in ``chiprun_out/chip_smoke_profile*.txt``).  Any
+time; full tables in ``chiprun_out/chip_smoke_profile*.txt``), the train
+phase's of one more step.  Any
 mismatch raises, so the script exits non-zero; without a CUDA device it
 exits non-zero at once.  Imports nothing of JAX and nothing of the JAX
 package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -149,6 +176,26 @@ SCAN_TOL = 1e-4
 #: WKV sweep of phase 3 (``state``: from a zero or a carried state)
 WKV_SWEEP = dict(B=(1, 4), S=(1, 7, 64, 1000, 1421), H=(4, 40),
                  hd=(16, 32, 64), state=(False, True))
+#: quantize sweep of phase 3 (every case in f32 and bf16 out), and the two
+#: rows the compression chain quantizes most: qwen3-8b's embedding (151,936
+#: x 4,096) and an MLP weight (4,096 x 12,288), each tensor one row
+QUANT_SWEEP = dict(R=(1, 3, 256), D=(1, 127, 4097, 1 << 20),
+                   x=("float32", "bfloat16"))
+EMBED_ELEMENTS = 151936 * 4096
+MLP_ELEMENTS = 4096 * 12288
+#: the train phase: qwen3-8b at full width cut to 8 layers (five f32 copies
+#: of its 2.79 B parameters, 55.8 GB, fit the card; all 36 layers would
+#: need 164 GB), batch 1 x 4,096 tokens (the reference's train_4k
+#: sequence), int8 compression
+TRAIN_ARCH = "qwen3-8b"
+TRAIN_LAYERS = 8
+TRAIN_B, TRAIN_S = 1, 4096
+TRAIN_STEPS = 5
+TRAIN_LR = 3e-4
+TRAIN_SEED = 16
+#: the card's restart check: relative loss difference after the restore
+#: (the embedding's backward accumulates with atomics)
+RESTART_RTOL = 1e-3
 #: the WKV tolerance: |got - want| <= WKV_TOL * max|want| + WKV_TOL.  The
 #: reference's absolute 1e-4 holds only at its small inputs: at a served
 #: prefill (S ~ 1,400, r/k/v ~ N(0, 1), decay ~ 0.9975) |y| reaches
@@ -379,8 +426,10 @@ def close(got, want, what: str, tol: float | None = None) -> float:
 
 
 def check_flash(dev) -> dict:
-    """The flash-attention kernel against its plain version over the sweep;
-    returns the case count and the largest error per dtype."""
+    """The flash-attention kernel against its plain version over the sweep,
+    the output and the rows' log-sum-exp, and the output the same with and
+    without the LSE; returns the case count and the largest errors per
+    dtype."""
     import itertools
 
     import torch
@@ -389,19 +438,25 @@ def check_flash(dev) -> dict:
                                                      flash_attention_cuda)
     rng = np.random.default_rng(13)
     worst = {d: 0.0 for d in FA_SWEEP["dtype"]}
+    worst_lse = dict(worst)
     n = 0
     for causal, G, hd, S, B, dtype in itertools.product(
             *(FA_SWEEP[k] for k in ("causal", "G", "hd", "S", "B",
                                     "dtype"))):
         q, k, v = fa_inputs(rng, B, S, FA_KV * G, FA_KV, hd, dtype, dev)
-        got = flash_attention_cuda(q, k, v, causal)
+        got, lse = flash_attention_cuda(q, k, v, causal, return_lse=True)
         torch.cuda.synchronize()
-        err = close(got, attention_ref(q, k, v, causal),
-                    "flash_attention")
+        want, want_lse = attention_ref(q, k, v, causal, return_lse=True)
+        what = f"flash_attention causal={causal} G={G} hd={hd} S={S} B={B}"
+        err = close(got, want, what)
+        expect(torch.equal(got, flash_attention_cuda(q, k, v, causal)),
+               what + ": the output differs with and without the LSE")
         worst[dtype] = max(worst[dtype], err)
+        worst_lse[dtype] = max(worst_lse[dtype], close(
+            lse, want_lse, what + " lse", FA_TOL[str(q.dtype)]))
         n += 1
     return {"cases": n, "kv_heads": FA_KV, "sweep": FA_SWEEP,
-            "max_abs_err": worst}
+            "max_abs_err": worst, "lse_max_abs_err": worst_lse}
 
 
 def check_moe_gmm(dev) -> dict:
@@ -728,7 +783,7 @@ def profile_run(one_run, table: str = "chip_smoke_profile.txt") -> dict:
     out.mkdir(exist_ok=True)
     (out / table).write_text(
         avgs.table(sort_by="self_cpu_time_total", row_limit=40) + "\n" +
-        avgs.table(sort_by="self_device_time_total", row_limit=20))
+        avgs.table(sort_by="self_device_time_total", row_limit=40))
     host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count)
                    for e in avgs if e.device_type == DeviceType.CPU),
                   key=lambda x: -x[1])[:8]
@@ -736,7 +791,7 @@ def profile_run(one_run, table: str = "chip_smoke_profile.txt") -> dict:
     return {"wall_ms": wall_ms, "device_busy_ms": total,
             "device_idle_share": 1 - total / wall_ms if dev_ev else None,
             "device_events": len(dev_ev),
-            "top_device_ms": sorted(busy.items(), key=lambda x: -x[1])[:6],
+            "top_device_ms": sorted(busy.items(), key=lambda x: -x[1])[:10],
             "top_host_self_ms": host}
 
 
@@ -849,6 +904,7 @@ def serve_path(dev, card: Card, phase: str, cfg, requests: int,
     the kernels line)."""
     import torch
 
+    from repro_torch._tree import leaves
     from repro_torch.api import SERVE_SPECS, Platform, ServeBackend, nt
     from repro_torch.kernels.chacha20.kernel import chacha20_xor_cuda
     from repro_torch.kernels.flash_attention import flash_attention_cuda
@@ -866,7 +922,7 @@ def serve_path(dev, card: Card, phase: str, cfg, requests: int,
     params = init_params(gen, cfg, device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    n_params = sum(t.numel() for t in _leaves(params))
+    n_params = sum(t.numel() for t in leaves(params))
     pages = -(-(SERVE_PROMPT[1] + SERVE_MAX_NEW) // 16)
     ecfg = EngineConfig(batch_sizes=(1, 2, 4), max_len=SERVE_MAX_LEN,
                         mem_pages=requests * pages + 64, epoch_requests=6)
@@ -1084,17 +1140,6 @@ def serve_path(dev, card: Card, phase: str, cfg, requests: int,
         record["profile"] = profile_run(one_run,
                                         f"chip_smoke_profile_{phase}.txt")
     return record, typical
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, list):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 def checked_kernels(errs: dict, typical: dict) -> dict:
@@ -1332,8 +1377,9 @@ def raw_flash(q, k, v, causal: bool = True):
     out = torch.empty_like(q)
     B, S, H, hd = q.shape
     return raw_launch("flash_attention", "flash_attention_launch", [
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H,
-        k.shape[2], hd, 1 if q.dtype == torch.bfloat16 else 0, int(causal),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, B, S,
+        H, k.shape[2], hd, 1 if q.dtype == torch.bfloat16 else 0,
+        int(causal),
         torch.cuda.current_stream().cuda_stream], (q, k, v, out))
 
 
@@ -1555,6 +1601,547 @@ def wkv_line(card: Card, typical, launches: int, path: str) -> dict:
                        "bound_ms": d_bound, "bound_by": d_by}}
 
 
+# ----------------------------------------------------- quantize kernels ----
+def check_quantize(dev) -> dict:
+    """The quantize and dequantize kernels against their plain versions,
+    bit for bit (q, scale and the dequantized values, ``torch.equal``),
+    over the sweep, one whole embedding-sized row, an all-zero row, a row
+    with one 1e30 among values near 1e-30 and a view at an odd element
+    offset."""
+    import itertools
+
+    import torch
+
+    from repro_torch.kernels.quantize import (dequantize_int8_cuda,
+                                              dequantize_int8_ref,
+                                              quantize_int8_cuda,
+                                              quantize_int8_ref)
+    gen = torch.Generator(device=dev).manual_seed(17)
+
+    def held(x, what: str, outs=(torch.float32, torch.bfloat16)) -> None:
+        q, s = quantize_int8_cuda(x)
+        qr, sr = quantize_int8_ref(x)
+        torch.cuda.synchronize()
+        expect(torch.equal(q, qr) and torch.equal(s, sr),
+               f"quantize_int8 {what}: q or scale differs from plain")
+        for dt in outs:
+            expect(torch.equal(dequantize_int8_cuda(q, s, dt),
+                               dequantize_int8_ref(qr, sr, dt)),
+                   f"dequantize_int8 {what} -> {dt} differs from plain")
+
+    n = 0
+    for R, D, xd in itertools.product(*(QUANT_SWEEP[k]
+                                        for k in ("R", "D", "x"))):
+        x = (torch.randn((R, D), generator=gen, device=dev) * 3).to(
+            getattr(torch, xd))
+        held(x, f"R={R} D={D} x {xd}")
+        n += 1
+    row = torch.randn((1, EMBED_ELEMENTS), generator=gen, device=dev)
+    held(row, f"(1, {EMBED_ELEMENTS}) f32", outs=(torch.float32,))
+    del row
+    zero = torch.zeros((2, 4097), device=dev)
+    zero[1] = torch.randn(4097, generator=gen, device=dev)
+    held(zero, "an all-zero row")
+    q, s = quantize_int8_cuda(zero)
+    expect(float(s[0, 0]) == float(np.float32(1e-12) / np.float32(127.0))
+           and not q[0].any(), "the all-zero row's scale or q")
+    spike = torch.full((1, 4097), 1e-30, device=dev)
+    spike[0, 2000] = 1e30
+    held(spike, "one 1e30 among 1e-30s")
+    base = torch.randn((1 << 20) + 1, generator=gen, device=dev)
+    view = base[1:].view(1, -1)
+    expect(view.data_ptr() % 16 != 0, "the odd-offset view is aligned")
+    held(view, "a view at an odd element offset")
+    return {"cases": n + 4, "sweep": QUANT_SWEEP,
+            "embedding_row": EMBED_ELEMENTS, "bit_exact": True}
+
+
+def raw_quantize(x):
+    """A closure that zeroes the amax scratch and launches the quantize
+    kernels on fixed buffers (the wrapper's work without its checks and
+    allocations)."""
+    import torch
+    R, D = x.shape
+    q = torch.empty((R, D), dtype=torch.int8, device=x.device)
+    scale = torch.empty((R, 1), dtype=torch.float32, device=x.device)
+    amax = torch.zeros((R,), dtype=torch.int32, device=x.device)
+    launch = raw_launch("quantize", "quantize_int8_launch", [
+        x.data_ptr(), 0 if x.dtype == torch.float32 else 1, q.data_ptr(),
+        scale.data_ptr(), amax.data_ptr(), R, D,
+        torch.cuda.current_stream().cuda_stream], (x, q, scale, amax))
+
+    def run():
+        amax.zero_()
+        launch()
+    return run
+
+
+def raw_dequantize(q, scale):
+    import torch
+    R, D = q.shape
+    out = torch.empty((R, D), dtype=torch.float32, device=q.device)
+    return raw_launch("quantize", "dequantize_int8_launch", [
+        q.data_ptr(), scale.data_ptr(), out.data_ptr(), 0, R, D,
+        torch.cuda.current_stream().cuda_stream], (q, scale, out))
+
+
+def quantize_lines(card: Card, launches: dict) -> list:
+    """The kernels line's two quantize entries: each timed at the
+    embedding's row (1, 622,329,856) and at an MLP weight's (1,
+    50,331,648), f32 in and out, against 5 bytes an element (x read once
+    and q written once; q read once and the output written once)."""
+    import torch
+
+    from repro_torch.kernels.quantize import (dequantize_int8_cuda,
+                                              dequantize_int8_ref,
+                                              quantize_int8_cuda,
+                                              quantize_int8_ref)
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    rows = {}
+    for name, D in (("embedding", EMBED_ELEMENTS), ("mlp", MLP_ELEMENTS)):
+        x = torch.randn((1, D), generator=gen, device="cuda")
+        q, s = quantize_int8_cuda(x)
+        qr, sr = quantize_int8_ref(x)
+        out = dequantize_int8_cuda(q, s)
+        expect(torch.equal(q, qr) and torch.equal(s, sr) and
+               torch.equal(out, dequantize_int8_ref(qr, sr)),
+               f"quantize at the {name} row differs from plain")
+        bound, by = card.bound(5 * D + 4, 0)
+        reps = 20 if D == EMBED_ELEMENTS else 100
+        rows[name] = {
+            "D": D,
+            "quantize": {"ms": cuda_ms(raw_quantize(x), reps),
+                         "call_ms": cuda_ms(lambda: quantize_int8_cuda(x),
+                                            reps),
+                         "plain_ms": cuda_ms(lambda: quantize_int8_ref(x),
+                                             3),
+                         "bound_ms": bound, "bound_by": by},
+            "dequantize": {"ms": cuda_ms(raw_dequantize(q, s), reps),
+                           "call_ms": cuda_ms(
+                               lambda: dequantize_int8_cuda(q, s), reps),
+                           "plain_ms": cuda_ms(
+                               lambda: dequantize_int8_ref(q, s), 3),
+                           "library_ms": cuda_ms(lambda: torch.mul(q, s),
+                                                 reps),
+                           "bound_ms": bound, "bound_by": by}}
+        del x, q, s, qr, sr, out
+    lines = []
+    for name, at in (("quantize_int8", 34), ("dequantize_int8", 51)):
+        kind = name.split("_")[0]
+        emb, mlp = rows["embedding"][kind], rows["mlp"][kind]
+        lines.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/quantize.cu",
+            "replaces": f"src/repro/kernels/quantize/kernel.py:{at}",
+            "path": "train", "launches": launches[name],
+            "shape": {"R": 1, "D": EMBED_ELEMENTS, "x": "torch.float32",
+                      "out": "torch.float32"},
+            "bit_exact": True, "max_abs_err": 0.0,
+            "ms": emb["ms"], "call_ms": emb["call_ms"],
+            "plain_ms": emb["plain_ms"], "bound_ms": emb["bound_ms"],
+            "bound_by": emb["bound_by"], "bytes": 5 * EMBED_ELEMENTS + 4,
+            "library_ms": emb.get("library_ms"),
+            "library": "torch.mul(q, scale) (int8 x f32 promotes to f32)"
+                       if kind == "dequantize" else
+                       "none: no single PyTorch call",
+            "mlp": {"D": MLP_ELEMENTS, **mlp}})
+    return lines
+
+
+# ------------------------------------------------------------ 7. train ----
+@contextlib.contextmanager
+def patched(module, **attrs):
+    """Swap module attributes for the duration of a check (the model's
+    attention op, the compression's quantize ops) and put them back."""
+    old = {k: getattr(module, k) for k in attrs}
+    for k, v in attrs.items():
+        setattr(module, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(module, k, v)
+
+
+def plain_fallback_attention(q, k, v, causal=True, return_lse=False):
+    """The plain attention with the JAX model's XLA-fallback rounding (the
+    probabilities rounded to v's dtype for the PV product, as the kernel
+    does), with the rows' log-sum-exp."""
+    from repro_torch.kernels.flash_attention import attention_ref
+    out = attention_fallback(q, k, v)
+    if not return_lse:
+        return out
+    return out, attention_ref(q, k, v, causal, return_lse=True)[1]
+
+
+def grad_route(params, cfg, batch, attention=None):
+    """One step's loss and gradient (the Trainer's compressed step takes
+    its gradient of the f32 params so), with the model's attention op
+    replaced by ``attention`` when given."""
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import attention as A
+    if attention is None:
+        (loss, _), grads = value_and_grad(params, cfg, batch)
+    else:
+        with patched(A, flash_attention=attention):
+            (loss, _), grads = value_and_grad(params, cfg, batch)
+    return float(loss), grads
+
+
+def rel_l2(a, b) -> float:
+    """||a - b|| / ||b|| over all leaves of two gradient trees."""
+    import torch
+
+    from repro_torch._tree import leaves
+    num = den = 0.0
+    for x, y in zip(leaves(a), leaves(b), strict=True):
+        num += float(torch.linalg.vector_norm(x - y)) ** 2
+        den += float(torch.linalg.vector_norm(y)) ** 2
+    return (num / den) ** 0.5
+
+
+def train_gates(dev, cfg, batch) -> dict:
+    """Gradient gates of one step at the train phase's width and depth, on
+    their own weights.  In f32 compute the kernels' loss and gradient
+    against every kernel replaced by its plain version (1e-5 relative,
+    1e-4 relative L2), and a control that must fail: the kernel's LSE
+    handed to the backward shifted by log 2.  In bf16 compute the
+    gradient's relative L2 against the all-plain route (the fallback's
+    rounding) within twice the spread between that route and one whose
+    attention runs in f32 and is rounded at its output.  At most two
+    gradient trees are alive at once."""
+    import math
+
+    import torch
+
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention_cuda)
+    from repro_torch.models import init_params
+
+    def shifted(q, k, v, causal=True, return_lse=False):
+        out, lse = flash_attention_cuda(q, k, v, causal, return_lse=True)
+        return (out, lse + math.log(2.0)) if return_lse else out
+
+    params = init_params(TRAIN_SEED + 1, cfg, device=dev)
+    cfg32 = cfg.replace(compute_dtype="float32")
+    loss_p, g_p = grad_route(params, cfg32, batch, attention_ref)
+    loss_k, g_k = grad_route(params, cfg32, batch)
+    f32 = {"loss_plain": loss_p, "loss_kernels": loss_k,
+           "loss_rel_err": abs(loss_k - loss_p) / abs(loss_p),
+           "grad_rel_l2": rel_l2(g_k, g_p)}
+    del g_k
+    loss_c, g_c = grad_route(params, cfg32, batch, shifted)
+    f32["control_lse_plus_log2_grad_rel_l2"] = rel_l2(g_c, g_p)
+    f32["control_loss_rel_err"] = abs(loss_c - loss_p) / abs(loss_p)
+    del g_c, g_p
+    expect(f32["loss_rel_err"] <= 1e-5 and f32["grad_rel_l2"] <= 1e-4,
+           f"f32 gate: the kernels' step differs from the all-plain one: "
+           f"{f32}")
+    expect(f32["control_lse_plus_log2_grad_rel_l2"] > 1e-4,
+           f"f32 gate passes a control with its LSE shifted by log 2: "
+           f"{f32}")
+    free_device()
+    _, g_b = grad_route(params, cfg, batch, plain_fallback_attention)
+    _, g_f = grad_route(params, cfg, batch, attention_ref)
+    bf16 = {"plain_spread_rel_l2": rel_l2(g_f, g_b)}
+    del g_f
+    _, g_k = grad_route(params, cfg, batch)
+    bf16["grad_rel_l2"] = rel_l2(g_k, g_b)
+    del g_k, g_b, params
+    expect(bf16["grad_rel_l2"] <= 2 * bf16["plain_spread_rel_l2"],
+           "bf16 gate: the kernels' gradient is further from the "
+           f"all-plain one than twice the plain routes' spread: {bf16}")
+    free_device()
+    return {"float32_compute": f32, "bfloat16_compute": bf16}
+
+
+def checked_quantize_ops(counts: dict) -> dict:
+    """The compression's quantize ops as callables that launch each kernel
+    and hold its result bit for bit against the plain version on the same
+    input."""
+    import torch
+
+    from repro_torch.kernels.quantize import (dequantize_int8_cuda,
+                                              dequantize_int8_ref,
+                                              quantize_int8_cuda,
+                                              quantize_int8_ref)
+
+    def quantize(x):
+        q, s = quantize_int8_cuda(x)
+        qr, sr = quantize_int8_ref(x)
+        expect(torch.equal(q, qr) and torch.equal(s, sr),
+               f"quantize_int8 launch {counts['quantize']} of step 1 "
+               f"{tuple(x.shape)} differs from plain")
+        counts["quantize"] += 1
+        return q, s
+
+    def dequantize(q, s, dtype=torch.float32):
+        out = dequantize_int8_cuda(q, s, dtype)
+        expect(torch.equal(out, dequantize_int8_ref(q, s, dtype)),
+               f"dequantize_int8 launch {counts['dequantize']} of step 1 "
+               "differs from plain")
+        counts["dequantize"] += 1
+        return out
+    return {"quantize": quantize, "dequantize": dequantize}
+
+
+def check_train_step_one(dev, cfg, batch) -> dict:
+    """Step 1 of the compressed Trainer, checked.  Every flash launch of one
+    forward (out and LSE) against the plain version on the path's own q, k,
+    v; then the Trainer's own step with every quantize and dequantize
+    launch held bit for bit against its plain version, its gradients copied
+    to the host as it takes them; then the params, moments and EF after
+    the step against the same step with plain compression on those
+    gradients (the embedding's backward accumulates with atomics, so the
+    gradients are taken once), compared with ``torch.equal``."""
+    import torch
+
+    from repro_torch._tree import leaves, unflatten
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention_cuda)
+    from repro_torch.kernels.quantize import (dequantize_int8_ref,
+                                              quantize_int8_ref)
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import moment_dtype_for, value_and_grad
+    from repro_torch.models import attention as A
+    from repro_torch.models import init_params
+    from repro_torch.models.model import apply_train
+    from repro_torch.optim import adamw
+    from repro_torch.optim import compress as C
+
+    tr = train.Trainer(cfg, lr=TRAIN_LR, compress="int8", seed=TRAIN_SEED,
+                       device=dev)
+    errs = {"out": [], "lse": []}
+
+    def checked_attention(q, k, v, causal=True, return_lse=False):
+        out, lse = flash_attention_cuda(q, k, v, causal, return_lse=True)
+        want, want_lse = attention_ref(q, k, v, causal, return_lse=True)
+        errs["out"].append(close(out, want, "flash_attention (train)"))
+        errs["lse"].append(close(lse, want_lse,
+                                 "flash_attention lse (train)",
+                                 FA_TOL[str(q.dtype)]))
+        return (out, lse) if return_lse else out
+
+    with torch.no_grad(), patched(A, flash_attention=checked_attention):
+        apply_train(tr.params, cfg, batch)
+    expect(len(errs["out"]) == cfg.n_layers,
+           f"one forward checked {len(errs['out'])} flash launches")
+
+    host_grads: list = []
+
+    def capturing(params, cfg_, batch_):
+        out, grads = value_and_grad(params, cfg_, batch_)
+        host_grads.extend(g.cpu() for g in leaves(grads))
+        return out, grads
+
+    counts = {"quantize": 0, "dequantize": 0}
+    ef = tr.compressor.init(tr.params)
+    with patched(train, value_and_grad=capturing), \
+            patched(C, **checked_quantize_ops(counts)):
+        params, opt, ef, m = tr.step_fn(tr.params, tr.opt, ef, batch)
+    n_leaves = len(leaves(params))
+    expect(counts == {"quantize": n_leaves, "dequantize": n_leaves},
+           f"step 1 quantized {counts} for {n_leaves} tensors")
+    metrics = {k: float(v) for k, v in m.items()}
+    expect(all(np.isfinite(v) for v in metrics.values()),
+           f"step 1 metrics {metrics}")
+    kernel_state = {name: [t.cpu() for t in leaves(tree)] for name, tree in
+                    (("params", params), ("m", opt.m), ("v", opt.v),
+                     ("ef", ef))}
+    del tr, params, opt, ef
+    free_device()
+
+    # the same step with plain compression on the same gradients, from the
+    # same initial weights (drawn again from the Trainer's seed)
+    params = init_params(TRAIN_SEED, cfg, device=dev)
+    opt = adamw.init(params, moment_dtype_for(cfg))
+    comp = C.GradCompressor("int8")
+    ef = comp.init(params)
+    grads = unflatten(params, (g.to(dev) for g in host_grads))
+    del host_grads
+    with patched(C, quantize=quantize_int8_ref,
+                 dequantize=dequantize_int8_ref):
+        sent, ef, _ = comp.compress(grads, ef)
+    del grads
+    params, opt, om = adamw.update(sent, opt, params, lr=TRAIN_LR)
+    del sent
+    expect(float(om["grad_norm"]) == metrics["grad_norm"],
+           f"plain compression's grad_norm {float(om['grad_norm'])} != "
+           f"{metrics['grad_norm']}")
+    for name, tree in (("params", params), ("m", opt.m), ("v", opt.v),
+                       ("ef", ef)):
+        for i, (a, b) in enumerate(zip(leaves(tree), kernel_state[name],
+                                       strict=True)):
+            expect(torch.equal(a, b.to(dev)),
+                   f"step 1 {name} leaf {i} differs from plain compression")
+    del params, opt, ef, kernel_state
+    free_device()
+    return {"flash_launches_checked": len(errs["out"]),
+            "flash_max_abs_err": max(errs["out"]),
+            "flash_lse_max_abs_err": max(errs["lse"]),
+            "quantize_launches_checked": counts["quantize"],
+            "dequantize_launches_checked": counts["dequantize"],
+            "state_equal_to_plain_compression": True,
+            "step1_metrics": metrics}
+
+
+def compress_ms(tr, reps: int = 2) -> float:
+    """Device ms of one ``GradCompressor.compress`` over the model's
+    gradients (CUDA events; random gradients of the params' shapes, the
+    EF buffer carried), with the Trainer's params and moments alive."""
+    import torch
+
+    from repro_torch._tree import map_tree
+    gen = torch.Generator(device=tr.device).manual_seed(19)
+    grads = map_tree(lambda p: torch.randn(p.shape, generator=gen,
+                                           device=p.device) * 1e-3,
+                     tr.params)
+    ef = tr.compressor.init(tr.params)
+    ms = cuda_ms(lambda: tr.compressor.compress(grads, ef), reps)
+    del grads, ef
+    return ms
+
+
+def restart_on_card(dev, cfg) -> dict:
+    """A small crash/restart on the card: a narrow config of the train
+    phase's family (head_dim 64), ``compress="none"`` (``make_train_step``
+    with bf16 gradients), checkpoints in a temporary directory.  Steps 4-8
+    after restoring step 3 are held against an uninterrupted run within
+    RESTART_RTOL: the embedding's backward accumulates with atomics, so
+    two runs on the card are not bit-identical."""
+    import tempfile
+
+    from repro_torch.launch import train
+    small = cfg.replace(n_layers=2, d_model=256, n_heads=4, n_kv_heads=2,
+                        head_dim=64, d_ff=512, vocab_size=4096,
+                        attn_block=64, loss_chunk=64)
+    quiet = dict(log=lambda *_: None)
+    ref = train.Trainer(small, lr=1e-3, seed=3, device=dev).run(8, 2, 256,
+                                                                **quiet)
+    with tempfile.TemporaryDirectory() as d:
+        tr = train.Trainer(small, d, lr=1e-3, seed=3, device=dev)
+        try:
+            tr.run(8, 2, 256, ckpt_every=3, crash_at=5, **quiet)
+            raise AssertionError("chip_smoke: the injected crash did not "
+                                 "happen")
+        except RuntimeError as e:
+            expect("injected failure at step 5" in str(e), str(e))
+        tr2 = train.Trainer(small, d, lr=1e-3, seed=3, device=dev)
+        expect(tr2.restore_if_any() and tr2.step == 3,
+               f"restored step {tr2.step}")
+        losses = tr2.run(8, 2, 256, ckpt_every=3, **quiet)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref[3:]))
+    expect(len(losses) == 5 and rel <= RESTART_RTOL,
+           f"losses after the restart {losses} differ from {ref[3:]} by "
+           f"{rel} > {RESTART_RTOL}")
+    return {"config": {"d_model": 256, "layers": 2, "head_dim": 64,
+                       "vocab": 4096, "batch": 2, "seq": 256},
+            "crash_at": 5, "restored": 3, "losses": losses,
+            "uninterrupted": ref[3:], "max_rel_diff": rel,
+            "rtol": RESTART_RTOL}
+
+
+def train_path(dev, profile: bool = False):
+    """The ``train`` phase: the compressed Trainer at qwen3-8b's full width
+    cut to TRAIN_LAYERS layers, batch TRAIN_B x TRAIN_S, TRAIN_STEPS steps,
+    after its gates and its checked first step (each emitted as its own
+    record).  Returns the record and the main run's launches per kernel."""
+    import torch
+
+    from repro_torch._tree import leaves
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.quantize import (dequantize_int8_cuda,
+                                              quantize_int8_cuda)
+    from repro_torch.launch import train
+
+    full = get_config(TRAIN_ARCH)
+    cfg = full.replace(n_layers=TRAIN_LAYERS)
+    reduced = {"n_layers": f"{full.n_layers} -> {TRAIN_LAYERS}"}
+    batch = SyntheticLM(cfg, TRAIN_B, TRAIN_S, seed=TRAIN_SEED,
+                        device=dev).batch(0)
+    t0 = time.perf_counter()
+    emit({"phase": "train_gates", **train_gates(dev, cfg, batch),
+          "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    emit({"phase": "train_step1", **check_train_step_one(dev, cfg, batch),
+          "seconds": time.perf_counter() - t0})
+    del batch
+
+    t0 = time.perf_counter()
+    tr = train.Trainer(cfg, lr=TRAIN_LR, compress="int8", seed=TRAIN_SEED,
+                       device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in leaves(tr.params))
+    kernels = {"quantize_int8": quantize_int8_cuda,
+               "dequantize_int8": dequantize_int8_cuda,
+               "flash_attention": flash_attention_cuda}
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.launches = 0                       # this path's counts start here
+    ends, lines = [], []
+
+    def log(line: str) -> None:             # after each step's logging sync
+        ends.append(time.perf_counter())
+        lines.append(line)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    losses = tr.run(TRAIN_STEPS, TRAIN_B, TRAIN_S, seed=TRAIN_SEED,
+                    log_every=1, log=log)
+    launches = {name: k.launches for name, k in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+
+    n_leaves = len(leaves(tr.params))
+    per_step = {"quantize_int8": n_leaves, "dequantize_int8": n_leaves,
+                "flash_attention": 2 * cfg.n_layers}
+    for name, n in per_step.items():
+        expect(launches[name] == n * TRAIN_STEPS,
+               f"{name} launched {launches[name]}x in {TRAIN_STEPS} steps, "
+               f"expected {n} a step")
+    gnorms = [float(ln.split("gnorm ")[1].split()[0]) for ln in lines]
+    expect(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)) and
+           all(np.isfinite(gnorms)), f"losses {losses}, gnorms {gnorms}")
+    step_s = [b - a for a, b in zip([start] + ends[:-1], ends)]
+    median_s = float(np.median(step_s[1:]))
+    counts = cfg.param_counts()
+    matmul_params = counts["mixer"] + counts["channel"] + counts["head"]
+    attn_flop = 3 * 4 * TRAIN_B * cfg.n_heads * cfg.hd * \
+        TRAIN_S * (TRAIN_S + 1) / 2 * cfg.n_layers
+    flop = 6 * matmul_params * TRAIN_B * TRAIN_S + attn_flop
+    comp_ms = compress_ms(tr)
+    record = {
+        "phase": "train", "arch": cfg.name, "layers": cfg.n_layers,
+        "reduced": reduced, "d_model": cfg.d_model, "params": n_params,
+        "param_tensors": n_leaves, "param_dtype": cfg.param_dtype,
+        "compute_dtype": cfg.compute_dtype, "compress": "int8",
+        "batch": TRAIN_B, "seq": TRAIN_S, "lr": TRAIN_LR,
+        "steps": TRAIN_STEPS, "init_seconds": init_s,
+        "losses": losses, "grad_norms": gnorms,
+        "step_seconds": step_s, "median_step_s_2_to_5": median_s,
+        "tokens_per_s": TRAIN_B * TRAIN_S / median_s,
+        "model_flop_per_step": flop, "matmul_params": matmul_params,
+        "attention_flop_per_step": attn_flop,
+        "achieved_tflop_per_s": flop / median_s / 1e12,
+        "mfu": flop / median_s / PEAK_FLOPS["torch.bfloat16"],
+        "compress_ms_per_step": comp_ms,
+        "compress_share_of_step": comp_ms / 1e3 / median_s,
+        "max_memory_gb": peak / 1e9,
+        "launches": launches, "launches_per_step": per_step,
+    }
+    if profile:
+        record["profile"] = profile_run(
+            lambda: tr.run(tr.step + 1, TRAIN_B, TRAIN_S, seed=TRAIN_SEED,
+                           log=lambda *_: None),
+            "chip_smoke_profile_train.txt")
+    del tr
+    free_device()
+    record["restart"] = restart_on_card(dev, get_config(TRAIN_ARCH))
+    free_device()
+    return record, launches
+
+
 def free_device() -> None:
     """Release a finished phase's tensors before the next phase's weights
     are drawn."""
@@ -1609,7 +2196,8 @@ def main() -> int:
           "vpc_datapath": check_vpc(dev), "bit_exact": True,
           "flash_attention": check_flash(dev),
           "moe_gmm": check_moe_gmm(dev), "mamba_ssm": check_mamba(dev),
-          "rwkv6_wkv": check_rwkv(dev), "seconds": time.perf_counter() - t0})
+          "rwkv6_wkv": check_rwkv(dev), "quantize": check_quantize(dev),
+          "seconds": time.perf_counter() - t0})
     free_device()
 
     record, args, launches = main_path(dev, card, profile=profile)
@@ -1647,8 +2235,14 @@ def main() -> int:
         del record, typical
         free_device()
 
+    t0 = time.perf_counter()
+    record, launches = train_path(dev, profile=profile)
+    record["phase_seconds"] = time.perf_counter() - t0
+    emit(record)
+    quant = quantize_lines(card, launches)
+
     emit({"kernels": [vpc, chacha, lines["flash_attention"],
-                      lines["moe_gmm"], lines["mamba_ssm"],
+                      lines["moe_gmm"], *quant, lines["mamba_ssm"],
                       lines["rwkv6_wkv"]]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": card.name,
                                  "count": torch.cuda.device_count()}})

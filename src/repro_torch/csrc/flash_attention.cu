@@ -17,7 +17,11 @@
 // keys at or past S are masked here, so nothing pads S to a tile multiple.
 // The running max, denominator and output accumulator are f32 in
 // registers, and the result is divided by max(denom, 1e-30) at the end, as
-// in the Pallas kernel.  Two bodies share that decomposition:
+// in the Pallas kernel.  Where the caller passes an lse buffer, each row's
+// log-sum-exp m + log(max(denom, 1e-30)) of the scaled scores is written
+// there too (B, S, H) f32, as the JAX model's _fa_forward returns it for
+// the backward; serving passes null.  Each body is instantiated with and
+// without that write, so serving runs the body it ran before.  Two bodies share that decomposition:
 //   - bf16: the products on the tensor cores (mma.sync m16n8k16, bf16 in,
 //     f32 accumulate), the serving path's dtype;
 //   - f32: scalar f32 FMAs (4 threads per row, hd / 4 dims each), exact
@@ -55,13 +59,13 @@ __device__ __forceinline__ float4 ld4(const float* p) {
 }
 
 // ------------------------------------------------- f32 on scalar FMAs ----
-template <int HD>
+template <int HD, bool kLse>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ o,
-                       int S, int H, int Kv, int G, int bq, float scale,
-                       int causal) {
+                       float* __restrict__ lse, int S, int H, int Kv, int G,
+                       int bq, float scale, int causal) {
   constexpr int kChunks = HD / (4 * kTpr);   // float4 chunks per thread
   __shared__ __align__(16) float ks[kBk][HD];
   __shared__ __align__(16) float vs[kBk][HD];
@@ -163,6 +167,7 @@ flash_attention_kernel(const float* __restrict__ q,
 
   if (!live) return;
   const float d = fmaxf(den, 1e-30f);
+  if (kLse && sub == 0) lse[row / HD] = m + logf(d);
 #pragma unroll
   for (int c = 0; c < kChunks; ++c)
     *reinterpret_cast<float4*>(o + row + 16 * c + 4 * sub) =
@@ -204,13 +209,17 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <int HD>
-__global__ void __launch_bounds__(kMmaThreads)
+// Three blocks of 128 threads fit an SM only at <= 168 registers a thread
+// (registers are allocated 256 a warp); at hd 128 the LSE epilogue alone
+// took the body to 170, two blocks an SM and 15 % slower, so hd 128 asks
+// for three.  hd 64 keeps three blocks at the 140-167 registers it takes.
+template <int HD, bool kLse>
+__global__ void __launch_bounds__(kMmaThreads, HD >= 128 ? 3 : 1)
 flash_attention_mma_kernel(const bf16* __restrict__ q,
                            const bf16* __restrict__ k,
                            const bf16* __restrict__ v, bf16* __restrict__ o,
-                           int S, int H, int Kv, int G, int bq, float scale,
-                           int causal) {
+                           float* __restrict__ lse, int S, int H, int Kv,
+                           int G, int bq, float scale, int causal) {
   constexpr int KS = HD / 16;              // k-steps over the head dim
   constexpr int NT = kMmaBk / 8;           // key n-tiles per kv tile
   constexpr int OT = HD / 8;               // output n-tiles
@@ -349,6 +358,7 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
   for (int i = 0; i < 2; ++i) {
     if (!live[i]) continue;
     const float d = fmaxf(den[i], 1e-30f);
+    if (kLse && tig == 0) lse[row[i] / HD] = m[i] + logf(d);
 #pragma unroll
     for (int t = 0; t < OT; ++t)
       *reinterpret_cast<uint32_t*>(o + row[i] + 8 * t + 2 * tig) =
@@ -367,13 +377,15 @@ dim3 grid_of(int64_t B, int64_t S, int64_t Kv, int bq) {
 
 template <int HD>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
-               int64_t B, int64_t S, int64_t H, int64_t Kv, int causal,
-               cudaStream_t stream) {
+               float* lse, int64_t B, int64_t S, int64_t H, int64_t Kv,
+               int causal, cudaStream_t stream) {
   const int G = static_cast<int>(H / Kv);
   const int bq = kRows / G;
-  flash_attention_kernel<HD><<<grid_of(B, S, Kv, bq), kThreads, 0, stream>>>(
+  auto* kernel = lse != nullptr ? flash_attention_kernel<HD, true>
+                                : flash_attention_kernel<HD, false>;
+  kernel<<<grid_of(B, S, Kv, bq), kThreads, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<const float*>(v), static_cast<float*>(o), lse,
       static_cast<int>(S), static_cast<int>(H), static_cast<int>(Kv), G, bq,
       softmax_scale(HD), causal);
   return static_cast<int>(cudaGetLastError());
@@ -381,42 +393,45 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
 
 template <int HD>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
-                int64_t B, int64_t S, int64_t H, int64_t Kv, int causal,
-                cudaStream_t stream) {
+                float* lse, int64_t B, int64_t S, int64_t H, int64_t Kv,
+                int causal, cudaStream_t stream) {
   const int G = static_cast<int>(H / Kv);
   const int bq = kRows / G;
-  flash_attention_mma_kernel<HD><<<grid_of(B, S, Kv, bq), kMmaThreads, 0,
-                                   stream>>>(
+  auto* kernel = lse != nullptr ? flash_attention_mma_kernel<HD, true>
+                                : flash_attention_mma_kernel<HD, false>;
+  kernel<<<grid_of(B, S, Kv, bq), kMmaThreads, 0, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), static_cast<int>(S),
-      static_cast<int>(H), static_cast<int>(Kv), G, bq, softmax_scale(HD),
-      causal);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse,
+      static_cast<int>(S), static_cast<int>(H), static_cast<int>(Kv), G, bq,
+      softmax_scale(HD), causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // q, o: (B, S, H, hd); k, v: (B, S, Kv, hd); contiguous, 16-byte aligned,
-// all of one dtype: 0 = float32, 1 = bfloat16.  hd in {64, 128}, H a
+// all of one dtype: 0 = float32, 1 = bfloat16.  lse: (B, S, H) f32, or
+// null to skip it.  hd in {64, 128}, H a
 // multiple of Kv with H / Kv <= 64.  Launches on `stream`; returns
 // cudaGetLastError() (cudaErrorInvalidValue for a shape it does not take).
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int64_t B,
-                                      int64_t S, int64_t H, int64_t Kv,
-                                      int64_t hd, int dtype, int causal,
-                                      void* stream) {
+                                      const void* v, void* o, void* lse,
+                                      int64_t B, int64_t S, int64_t H,
+                                      int64_t Kv, int64_t hd, int dtype,
+                                      int causal, void* stream) {
   if (B <= 0 || S <= 0) return 0;
   if (Kv <= 0 || H % Kv != 0 || H / Kv > kRows || S > INT32_MAX / H)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
+  auto* l = static_cast<float*>(lse);
   if (dtype == 0 && hd == 64)
-    return launch_f32<64>(q, k, v, o, B, S, H, Kv, causal, st);
+    return launch_f32<64>(q, k, v, o, l, B, S, H, Kv, causal, st);
   if (dtype == 0 && hd == 128)
-    return launch_f32<128>(q, k, v, o, B, S, H, Kv, causal, st);
+    return launch_f32<128>(q, k, v, o, l, B, S, H, Kv, causal, st);
   if (dtype == 1 && hd == 64)
-    return launch_bf16<64>(q, k, v, o, B, S, H, Kv, causal, st);
+    return launch_bf16<64>(q, k, v, o, l, B, S, H, Kv, causal, st);
   if (dtype == 1 && hd == 128)
-    return launch_bf16<128>(q, k, v, o, B, S, H, Kv, causal, st);
+    return launch_bf16<128>(q, k, v, o, l, B, S, H, Kv, causal, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

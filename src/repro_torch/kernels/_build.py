@@ -37,8 +37,8 @@ SIGNATURES: dict[str, dict[str, tuple[list, type]]] = {
     },
     "flash_attention": {
         "flash_attention_launch": (
-            [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _INT, _INT, _P],
-            _INT),
+            [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _INT, _INT,
+             _P], _INT),
         "flash_attention_smem_bytes": ([_I64, _INT], _I64),
     },
     "mamba_scan": {
@@ -50,6 +50,11 @@ SIGNATURES: dict[str, dict[str, tuple[list, type]]] = {
         "moe_gmm_launch": (
             [_P, _P, _P, _I64, _I64, _I64, _I64, _INT, _INT, _P], _INT),
         "moe_gmm_smem_bytes": ([], _I64),
+    },
+    "quantize": {
+        "quantize_int8_launch": ([_P, _INT, _P, _P, _P, _I64, _I64, _P],
+                                 _INT),
+        "dequantize_int8_launch": ([_P, _P, _P, _INT, _I64, _I64, _P], _INT),
     },
     "rwkv6_scan": {
         "rwkv6_wkv_launch": (

@@ -3,14 +3,15 @@
 The kernel (``csrc/flash_attention.cu``) replaces the JAX package's Pallas
 kernel ``kernels/flash_attention/kernel.py::flash_attention_grouped`` (body
 ``_fa_kernel``): causal or full GQA forward attention with an f32 online
-softmax over kv tiles.  It reads the model's (B, S, H, hd) / (B, S, Kv, hd)
-layouts directly, so the TPU wrapper's transposes to (B, Kv, G, S, hd) have
-no counterpart here.  One block owns a (batch, kv head, query tile) and all
-G = H / Kv heads of the group, and stages each K/V tile in shared memory
-once for them.  At the serving shapes it is bound by arithmetic (the tensor
-cores' bf16 rate).  bf16 inputs run on the tensor cores (``mma.sync``, f32
-accumulation), f32 inputs on scalar f32 FMAs (see the source's note and
-``PERF.md``).
+softmax over kv tiles, and on request the rows' log-sum-exp, which the
+training backward (``models/attention.py``) reads.  It reads the model's
+(B, S, H, hd) / (B, S, Kv, hd) layouts directly, so the TPU wrapper's
+transposes to (B, Kv, G, S, hd) have no counterpart here.  One block owns
+a (batch, kv head, query tile) and all G = H / Kv heads of the group, and
+stages each K/V tile in shared memory once for them.  At the serving and
+training shapes it is bound by arithmetic (the tensor cores' bf16 rate).
+bf16 inputs run on the tensor cores (``mma.sync``, f32 accumulation), f32
+inputs on scalar f32 FMAs (see the source's note and ``PERF.md``).
 
 :func:`flash_attention_cuda` checks its inputs and raises on anything the
 kernel does not take; it never falls back to the plain version.
@@ -61,28 +62,34 @@ def _check(q, k, v) -> None:
                          f"for {HEAD_DIMS}")
 
 
-def flash_attention_cuda(q, k, v, causal: bool = True):
+def flash_attention_cuda(q, k, v, causal: bool = True,
+                         return_lse: bool = False):
     """Launch the CUDA kernel on the current stream (no synchronisation).
     q: (B, S, H, hd); k, v: (B, S, Kv, hd); contiguous, one dtype (f32 or
-    bf16), on one CUDA device.  Returns (B, S, H, hd) in q's dtype.  Counts
-    its launches in ``flash_attention_cuda.launches``, and per (B, S) in
+    bf16), on one CUDA device.  Returns (B, S, H, hd) in q's dtype, and with
+    ``return_lse`` also the rows' log-sum-exp (B, S, H) f32, which the
+    kernel writes beside the output.  Counts its launches in
+    ``flash_attention_cuda.launches``, and per (B, S) in
     ``flash_attention_cuda.shapes``."""
     _check(q, k, v)
     out = torch.empty_like(q)
     B, S, H, hd = q.shape
+    lse = torch.empty((B, S, H), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     if B == 0 or S == 0:
-        return out
+        return (out, lse) if return_lse else out
     lib = _build.library("flash_attention")
     with torch.cuda.device(q.device):
         err = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
-            H, k.shape[2], hd, _DTYPES[q.dtype], int(bool(causal)),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), B, S, H, k.shape[2], hd,
+            _DTYPES[q.dtype], int(bool(causal)),
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention")
     flash_attention_cuda.launches += 1
     shapes = flash_attention_cuda.shapes
     shapes[B, S] = shapes.get((B, S), 0) + 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention_cuda.launches = 0

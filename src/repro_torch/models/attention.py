@@ -1,19 +1,21 @@
-"""Grouped-query attention for serving: the prefill and decode part of the
-JAX package's ``models/attention.py``.
+"""Grouped-query attention: the JAX package's ``models/attention.py``.
 
 Entry points per layer:
-  - ``attn_prefill`` : full-sequence causal attention that also returns the
-                       layer's K/V, through the hand-written CUDA kernel on
-                       the card (:mod:`repro_torch.kernels.flash_attention`)
-                       and its plain version on the CPU
+  - ``attn_train``   : full-sequence causal attention with a gradient
+                       (:class:`FlashAttention`): the forward through the
+                       hand-written CUDA kernel on the card
+                       (:mod:`repro_torch.kernels.flash_attention`, which
+                       also writes the rows' log-sum-exp) and its plain
+                       version on the CPU; the backward is the JAX model's
+                       blockwise ``_fa_bwd`` in PyTorch
+  - ``attn_prefill`` : the same forward, also returning the layer's K/V
   - ``attn_decode``  : one new token against a (possibly longer) KV cache,
                        plain PyTorch as in the JAX package, which computes
                        it outside any Pallas kernel
 
-The JAX package's custom-vjp backward and ``attn_train`` belong to the
-training slice (ROADMAP Queue 1).  Its ``causal_attention`` pads S to a
-block multiple for the XLA fallback; the CUDA kernel masks the ragged edge
-of S itself, so nothing pads here.
+The JAX package's ``causal_attention`` pads S to a block multiple for its
+XLA fallback; the CUDA kernel masks the ragged edge of S itself, and the
+backward slices a ragged last query block, so nothing pads here.
 """
 from __future__ import annotations
 
@@ -68,6 +70,78 @@ def causal_attention(q, k, v):
     return flash_attention(q, k, v, causal=True)
 
 
+def _fa_bwd(q, k, v, out, lse, do, block_q: int):
+    """The JAX model's ``_fa_bwd`` (causal): query blocks of ``block_q``
+    rows, scores recomputed from the saved log-sum-exp, all in f32 (f64 for
+    f64 inputs) whatever the inputs' dtype, the G query heads of each KV
+    head summed into its dk and dv.  Keys past a block's last query are
+    masked for every row of it (their p is exactly 0), so each block reads
+    only the keys up to its end; the JAX package scans all S of them.
+    Returns (dq, dk, dv) in the inputs' dtypes."""
+    B, S, H, hd = q.shape
+    Kv = k.shape[2]
+    G = H // Kv
+    bq = min(block_q, S)
+    scale = hd ** -0.5
+    wide = torch.promote_types(q.dtype, torch.float32)
+    delta = (do.to(wide) * out.to(wide)).sum(-1)            # (B, S, H)
+    kw, vw = k.to(wide), v.to(wide)
+    dq = torch.empty(q.shape, dtype=wide, device=q.device)
+    dk = torch.zeros(k.shape, dtype=wide, device=q.device)
+    dv = torch.zeros(v.shape, dtype=wide, device=q.device)
+    for i0 in range(0, S, bq):
+        i1 = min(i0 + bq, S)
+        n = i1 - i0
+        qi = q[:, i0:i1].to(wide).reshape(B, n, Kv, G, hd)
+        doi = do[:, i0:i1].to(wide).reshape(B, n, Kv, G, hd)
+        lsei = lse[:, i0:i1].to(wide).reshape(B, n, Kv, G)
+        di = delta[:, i0:i1].reshape(B, n, Kv, G)
+        ki, vi = kw[:, :i1], vw[:, :i1]
+        s = torch.einsum("bqkgd,btkd->bqkgt", qi, ki) * scale
+        q_pos = torch.arange(i0, i1, device=q.device)
+        mask = q_pos[:, None] >= torch.arange(i1, device=q.device)[None, :]
+        s = torch.where(mask[None, :, None, None, :], s,
+                        torch.full_like(s, NEG_INF))
+        p = torch.exp(s - lsei[..., None])                  # (B,n,Kv,G,i1)
+        dp = torch.einsum("bqkgd,btkd->bqkgt", doi, vi)
+        ds = p * (dp - di[..., None]) * scale
+        dq[:, i0:i1] = torch.einsum("bqkgt,btkd->bqkgd", ds, ki).reshape(
+            B, n, H, hd)
+        dk[:, :i1] += torch.einsum("bqkgt,bqkgd->btkd", ds, qi)
+        dv[:, :i1] += torch.einsum("bqkgt,bqkgd->btkd", p, doi)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Causal GQA attention with the JAX model's residual contract: the
+    forward saves (q, k, v, out, lse) and the backward recomputes the
+    scores blockwise from them (:func:`_fa_bwd`).  The forward is
+    :func:`~repro_torch.kernels.flash_attention.flash_attention` with the
+    log-sum-exp: the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors.  The JAX package has no Pallas backward, so this plain
+    backward is its counterpart on both devices."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, block_q: int):
+        out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.block_q = block_q
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _fa_bwd(q, k, v, out, lse, do, ctx.block_q)
+        return dq, dk, dv, None
+
+
+def attn_train(p, x, cfg, positions):
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    o = FlashAttention.apply(q, k, v, cfg.attn_block)
+    B, S, _, _ = o.shape
+    return linear(p["wo"], o.reshape(B, S, -1))
+
+
 def attn_prefill(p, x, cfg, positions):
     q, k, v = _project_qkv(p, x, cfg, positions)
     o = causal_attention(q, k, v)
@@ -118,5 +192,6 @@ def attn_decode(p, x, cfg, k_cache, v_cache, pos: int):
     return y, k_cache, v_cache
 
 
-__all__ = ["NEG_INF", "attn_decode", "attn_init", "attn_prefill",
-           "causal_attention", "decode_attention"]
+__all__ = ["FlashAttention", "NEG_INF", "attn_decode", "attn_init",
+           "attn_prefill", "attn_train", "causal_attention",
+           "decode_attention"]

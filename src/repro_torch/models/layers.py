@@ -1,5 +1,5 @@
-"""Shared neural-net building blocks: the serving part of the JAX package's
-``models/layers.py`` as plain functions on tensors.
+"""Shared neural-net building blocks: the JAX package's ``models/layers.py``
+as plain functions on tensors.
 
 Conventions (as in the JAX package):
   - activations are (batch, seq, d_model); attention internals (B, S, H, hd).
@@ -10,8 +10,7 @@ Conventions (as in the JAX package):
   - compute dtype is controlled by the caller (configs set bf16 for
     production, f32 for CPU smoke tests); norms and RoPE compute in f32.
 
-``chunked_softmax_xent`` belongs to the training slice and is not here;
-``apply_mrope`` (Qwen2-VL) raises until its slice (ROADMAP Queue 1).
+``chunked_softmax_xent`` is the training loss.
 """
 from __future__ import annotations
 
@@ -19,6 +18,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def normal(gen: torch.Generator, shape, device) -> torch.Tensor:
@@ -117,10 +117,27 @@ def apply_rope(x, positions, theta: float = 10000.0):
 
 
 def apply_mrope(x, positions3, theta: float, sections: tuple[int, ...]):
-    """Multimodal RoPE (Qwen2-VL): not ported yet."""
-    raise NotImplementedError(
-        "apply_mrope (Qwen2-VL multimodal RoPE) is not ported yet: ROADMAP "
-        "Queue 1, VLM serving")
+    """Multimodal RoPE (Qwen2-VL). positions3: (3, B, S) [t, h, w] indices.
+
+    ``sections`` gives the per-modality share of rotary *pairs*; must sum to
+    hd//2.  Each frequency band takes its angle from its modality's
+    positions (the JAX package selects with a one-hot product; here the
+    selection is an index, which is exact too)."""
+    hd = x.shape[-1]
+    half = hd // 2
+    assert sum(sections) == half, (sections, half)
+    exps = torch.arange(0, hd, 2, dtype=torch.float32, device=x.device) / hd
+    inv_freq = 1.0 / (theta ** exps)
+    ang = positions3.float()[..., None] * inv_freq         # (3, B, S, half)
+    sect = torch.repeat_interleave(
+        torch.arange(len(sections), device=x.device),
+        torch.tensor(sections, device=x.device))           # (half,)
+    ang = ang[sect, :, :, torch.arange(half, device=x.device)]  # (half,B,S)
+    ang = ang.permute(1, 2, 0)
+    sin, cos = torch.sin(ang)[:, :, None, :], torch.cos(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
 
 
 # ------------------------------------------------------------------- MLP ----
@@ -143,6 +160,44 @@ def mlp(p, x, kind: str = "swiglu"):
     return linear(p["down"], F.gelu(linear(p["up"], x), approximate="tanh"))
 
 
-__all__ = ["apply_mrope", "apply_rope", "embed", "embed_init", "layernorm",
-           "layernorm_init", "linear", "linear_init", "mlp", "mlp_init",
-           "norm_apply", "norm_init", "normal", "rmsnorm", "rmsnorm_init"]
+# ------------------------------------------------- chunked cross-entropy ----
+def chunked_softmax_xent(x, head_w, labels, *, chunk: int = 512,
+                         label_smoothing: float = 0.0):
+    """Cross-entropy over a huge vocab without materialising (B, S, V).
+
+    x: (B, S, D) final hidden states; head_w: (D, V); labels: (B, S) int.
+    The sequence is cut into chunks as the JAX package's scan cuts it, and
+    each chunk's logits are recomputed in the backward
+    (``torch.utils.checkpoint``), so at most one (B, chunk, V) block of f32
+    logits is alive.  Returns the mean loss over all tokens (labels ==
+    -100 are masked out).
+    """
+    B, S, D = x.shape
+    V = head_w.shape[1]
+    nchunk = max(1, S // chunk)
+    assert S % nchunk == 0, (S, chunk)
+    csz = S // nchunk
+
+    def body(xx, ll):
+        logits = (xx @ head_w.to(xx.dtype)).float()       # (B, c, V)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, ll.clamp(0, V - 1).long()[..., None])[..., 0]
+        if label_smoothing:
+            gold = (1 - label_smoothing) * gold + \
+                label_smoothing * logits.mean(-1)
+        mask = (ll >= 0).float()
+        return ((logz - gold) * mask).sum(), mask.sum()
+
+    tot = cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(nchunk):
+        part = slice(i * csz, (i + 1) * csz)
+        t, c = checkpoint(body, x[:, part], labels[:, part],
+                          use_reentrant=False)
+        tot, cnt = tot + t, cnt + c
+    return tot / cnt.clamp(min=1.0)
+
+
+__all__ = ["apply_mrope", "apply_rope", "chunked_softmax_xent", "embed",
+           "embed_init", "layernorm", "layernorm_init", "linear",
+           "linear_init", "mlp", "mlp_init", "norm_apply", "norm_init",
+           "normal", "rmsnorm", "rmsnorm_init"]

@@ -1,8 +1,9 @@
-"""Model assembly for serving: the JAX package's ``models/model.py`` as
-plain functions over a dict of tensors.
+"""Model assembly: the JAX package's ``models/model.py`` as plain
+functions over a dict of tensors.
 
 Entry points:
   - ``init_params(gen, cfg, device=None)``          parameters for the model
+  - ``apply_train(params, cfg, batch)``              -> (loss, metrics)
   - ``apply_prefill(params, cfg, batch, max_len)``   -> (logits_last, cache)
   - ``apply_decode(params, cfg, cache, batch, pos)`` -> (logits, cache)
   - ``init_cache(cfg, B, max_len, dtype, device)``   decode-state list
@@ -21,14 +22,19 @@ result:
   - ``apply_prefill`` and ``apply_decode`` write the caches in place and
     return them: the KV cache rows, the conv state and the SSM state, the
     RWKV (hd, hd) state (each scan kernel writes its final state where it
-    read the carried one) and the RWKV blocks' last tokens.
-Training (``apply_train``) is the training slice.
+    read the carried one) and the RWKV blocks' last tokens;
+  - ``remat="full"`` is ``torch.utils.checkpoint`` per layer (the JAX
+    package's ``jax.checkpoint``); no config uses ``"dots"``, which raises.
+Training runs the families whose layers are attention + MLP (dense, and
+the ``embeds`` frontend of audio and VLM); a MoE, Mamba or RWKV layer
+raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import _device
 
@@ -36,8 +42,8 @@ from . import attention as A
 from . import mamba as M
 from . import moe as X
 from . import rwkv6 as R
-from .layers import (embed, embed_init, linear, linear_init, mlp, mlp_init,
-                     norm_apply, norm_init)
+from .layers import (chunked_softmax_xent, embed, embed_init, linear,
+                     linear_init, mlp, mlp_init, norm_apply, norm_init)
 
 Params = Any
 
@@ -73,6 +79,39 @@ def layer_init(gen, cfg, i: int, dtype, device=None):
     else:
         p["rwkv_cm"] = R.channelmix_init(gen, cfg, **kw)
     return p
+
+
+#: layer kinds training does not run yet, and the ROADMAP item of each
+_UNTRAINED = {
+    "moe": "MoE training (the aux and z losses, a backward for the moe_gmm "
+           "path): ROADMAP Queue 1 #1",
+    "mamba": "Mamba training (the chunked, rematerialised ssm_scan under "
+             "autograd): ROADMAP Queue 1 #1",
+    "rwkv": "RWKV training (the chunked, rematerialised wkv_scan under "
+            "autograd): ROADMAP Queue 1 #1",
+}
+_UNTRAINED["rwkv_cm"] = _UNTRAINED["rwkv"]
+
+
+def _check_trainable(cfg, kinds) -> None:
+    """Raise naming the ROADMAP item for a layer kind in ``kinds`` (pairs
+    of mixer and channel kinds) that training does not run."""
+    for kind in (k for pair in kinds for k in pair):
+        if kind in _UNTRAINED:
+            raise NotImplementedError(
+                f"{cfg.name}: {kind} layers do not train yet: "
+                f"{_UNTRAINED[kind]}")
+
+
+def layer_apply(p, x, cfg, i: int, positions):
+    """Full-sequence layer for training (attention + MLP). Returns (x,
+    aux_loss); the aux loss of an MLP layer is 0."""
+    _check_trainable(cfg, [(cfg.mixer_kind(i), cfg.channel_kind(i))])
+    h = norm_apply(cfg.norm, p["norm1"], x)
+    x = x + A.attn_train(p["attn"], h, cfg, positions)
+    h = norm_apply(cfg.norm, p["norm2"], x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + mlp(p["mlp"], h, cfg.mlp_kind), aux
 
 
 def layer_cache_init(cfg, i: int, B: int, max_len: int, dtype, device=None):
@@ -168,6 +207,62 @@ def embed_inputs(params, cfg, batch):
     return norm_apply(cfg.norm, params["in_norm"], batch["embeds"].to(cdt))
 
 
+def _remat(fn, cfg):
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "full":
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+    raise NotImplementedError(f"remat={cfg.remat!r} is not ported (no "
+                              "config uses it)")
+
+
+def forward_hidden(params, cfg, batch):
+    """Runs the full stack; returns (hidden (B, S, d), aux_loss)."""
+    x = embed_inputs(params, cfg, batch)
+    B, S, _ = x.shape
+    positions = _positions(cfg, batch, B, S, x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, lp in enumerate(params["layers"]):
+        def one(xx, lp, i=i):
+            return layer_apply(lp, xx, cfg, i, positions)
+        x, a = _remat(one, cfg)(x, lp)
+        aux = aux + a
+    return x, aux
+
+
+def apply_train(params, cfg, batch):
+    """batch: tokens|embeds, labels (B, S) int (-100 = masked) ->
+    (loss, {"xent", "aux", "loss"})."""
+    _check_trainable(cfg, cfg.layer_kinds())
+    x, aux = forward_hidden(params, cfg, batch)
+    x = norm_apply(cfg.norm, params["final_norm"], x)
+    xent = chunked_softmax_xent(x, params["head"]["w"], batch["labels"],
+                                chunk=cfg.loss_chunk)
+    loss = xent + aux
+    return loss, {"xent": xent, "aux": aux, "loss": loss}
+
+
+def dummy_batch(cfg, B: int, S: int, kind: str = "train", gen=None,
+                device=None):
+    """A concrete small batch for smoke tests, drawn from ``gen`` (a
+    ``torch.Generator`` or an int seed; default seed 0)."""
+    dev = _device.resolve(device)
+    gen = _generator(0 if gen is None else gen, dev)
+    b: dict = {}
+    if cfg.frontend == "tokens":
+        b["tokens"] = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                                    device=gen.device,
+                                    dtype=torch.int32).to(dev)
+    else:
+        b["embeds"] = torch.randn((B, S, cfg.d_model), generator=gen,
+                                  device=gen.device).mul_(0.02).to(dev)
+    if kind == "train":
+        b["labels"] = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                                    device=gen.device,
+                                    dtype=torch.int32).to(dev)
+    return b
+
+
 def init_cache(cfg, B: int, max_len: int, dtype=torch.bfloat16, device=None):
     return [layer_cache_init(cfg, i, B, max_len, dtype, device)
             for i in range(cfg.n_layers)]
@@ -228,5 +323,6 @@ def apply_decode(params, cfg, cache, batch, pos: int):
     return logits, new
 
 
-__all__ = ["apply_decode", "apply_prefill", "embed_inputs", "init_cache",
-           "init_params", "layer_cache_init", "layer_decode", "layer_init"]
+__all__ = ["apply_decode", "apply_prefill", "apply_train", "dummy_batch",
+           "embed_inputs", "forward_hidden", "init_cache", "init_params",
+           "layer_apply", "layer_cache_init", "layer_decode", "layer_init"]

@@ -147,9 +147,18 @@ def test_rope_matches_jax(theta, pos_shape):
 
 
 def test_mrope_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        layers.apply_mrope(torch.zeros((1, 2, 1, 8)),
-                           torch.zeros((3, 1, 2)), 1e4, (2, 1, 1))
+    """The name dates from when ``apply_mrope`` raised; it is ported now and
+    held against the JAX function: Qwen2-VL's sections (2, 3, 3) at hd 16
+    and the (2, 1, 1) split at hd 8, with distinct t/h/w positions."""
+    rng = np.random.default_rng(6)
+    for hd, sections in ((16, (2, 3, 3)), (8, (2, 1, 1))):
+        x = rng.standard_normal((2, 9, 4, hd)).astype(np.float32)
+        pos = rng.integers(0, 500, (3, 2, 9)).astype(np.int32)
+        got = layers.apply_mrope(torch.from_numpy(x), torch.from_numpy(pos),
+                                 1e6, sections)
+        want = jlayers.apply_mrope(jnp.asarray(x), jnp.asarray(pos), 1e6,
+                                   sections)
+        np.testing.assert_allclose(f32(got), f32(want), atol=2e-5, rtol=2e-5)
 
 
 @pytest.mark.parametrize("kind", ["swiglu", "gelu"])

@@ -220,13 +220,17 @@ def test_configs_match_jax():
 
 @pytest.mark.parametrize("arch", ["qwen2-vl-2b"])
 def test_other_families_raise_naming_their_slice(arch):
-    """Qwen2-VL's multimodal RoPE (``apply_mrope``) is the one serving piece
-    not ported yet: a prefill reaches it and raises naming its slice."""
-    cfg = configs.get_tiny_config(arch)
-    params = TM.init_params(0, cfg, device=CPU)
-    embeds = torch.zeros((1, 4, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="ROADMAP.*VLM serving"):
-        TM.apply_prefill(params, cfg, {"embeds": embeds})
+    """The name dates from when Qwen2-VL's multimodal RoPE raised; it is
+    ported now, so a Qwen2-VL prefill from embeddings (M-RoPE over (3, B,
+    S) positions) is held against the JAX package's, logits within 1e-4."""
+    cfg = jconfigs.get_tiny_config(arch)
+    jp = JM.init_params(jax.random.PRNGKey(2), cfg)
+    embeds = np.random.default_rng(4).standard_normal(
+        (2, 6, cfg.d_model)).astype(np.float32) * 0.02
+    jl, _ = j_prefill(jp, cfg, {"embeds": jnp.asarray(embeds)}, max_len=8)
+    tl, _ = TM.apply_prefill(ported(jp, cfg), cfg,
+                             {"embeds": torch.from_numpy(embeds)}, max_len=8)
+    assert_logits(tl, jl)
 
 
 def test_init_params_shapes_dtypes_and_default_device():
