@@ -77,10 +77,11 @@ prints one JSON line per phase:
      computes the same function, that call's time;
 and last ``{"ok": true, "device": {...}}``.  Phase 3 also holds the
 flash-attention kernel against its plain version over causal and not,
-G in {1, 2, 4, 8}, hd in {64, 128}, S in {1, 7, 128, 1000, 2051}, B in
-{1, 4}, bf16 and f32 (the reference's tolerances: 3e-2 and 2e-5); the
-grouped matmul over E in {1, 16, 32}, M in {1, 2, 7, 200, 800}, four (d, f)
-widths and its three dtype routes (same tolerances); and the selective
+G in {1, 2, 4, 8}, hd in {64, 128}, S in {1, 7, 63, 65, 128, 129, 1000,
+1237, 2051}, B in {1, 4}, bf16 and f32 (the reference's tolerances: 3e-2
+and 2e-5), 576 cases; the grouped matmul over E in {1, 16, 32}, M in {1,
+2, 7, 63, 64, 65, 200, 448, 800}, six (d, f) widths and its three dtype
+routes (same tolerances), 432 cases; and the selective
 scan over B in {1, 4}, S in {1, 7, 128, 1000}, di in {64, 8192}, from a zero
 and a carried state (1e-4); and the WKV scan over B in {1, 4}, S in {1, 7,
 64, 1000, 1421}, H in {4, 40}, hd in {16, 32, 64}, from a zero and a
@@ -153,19 +154,31 @@ SERVE_MAX_LEN = 2048
 SERVE_SEED = 8
 #: flash-attention sweep of phase 3, and the reference's tolerances
 #: (tests/test_kernels.py: assert_allclose atol = rtol)
+#: (S 63, 65 and 129 straddle the bf16 body's 64-key tiles and, at G 4 and
+#: 8, its 32- and 16-query tiles; 1,237 is serve's prefill group)
 FA_SWEEP = dict(causal=(True, False), G=(1, 2, 4, 8), hd=(64, 128),
-                S=(1, 7, 128, 1000, 2048 + 3), B=(1, 4),
+                S=(1, 7, 63, 65, 128, 129, 1000, 1237, 2048 + 3), B=(1, 4),
                 dtype=("bfloat16", "float32"))
 FA_KV = 2
 FA_TOL = {"torch.bfloat16": 3e-2, "torch.float32": 2e-5}
 #: grouped-matmul sweep of phase 3: expert counts, row counts, (d, f) widths
 #: (Granite's and Jamba's expert FFNs among them) and the wrapper's routes
 #: (x dtype, w dtype); E = 32 runs only at widths up to GMM_WIDE_LIMIT
-#: elements a matrix, which keeps the sweep in seconds
-GMM_SWEEP = dict(E=(1, 16, 32), M=(1, 2, 7, 200, 800),
-                 df=((64, 100), (1024, 512), (4096, 14336), (14336, 4096)),
+#: elements a matrix, which keeps the sweep in seconds.  The edges of the
+#: tensor-core tiling: M 63, 64 and 65 on each side of the decode
+#: configuration's 64 rows, 448 (serve_hybrid's prefill, two tiles of 224);
+#: d 72 (fewer K tiles than the ring has stages, ragged 32-deep tile),
+#: d 100 (not a multiple of 8: x rows gathered element by element), f 264
+#: (a ragged 128-column tile) and f 1,030 (not a multiple of 4: weight rows
+#: gathered)
+GMM_SWEEP = dict(E=(1, 16, 32), M=(1, 2, 7, 63, 64, 65, 200, 448, 800),
+                 df=((64, 100), (1024, 512), (4096, 14336), (14336, 4096),
+                     (72, 264), (100, 1030)),
                  route=(("bfloat16", "bfloat16"), ("bfloat16", "float32"),
                         ("float32", "float32")))
+#: the kernel's dtype codes of the three routes, for the card line
+GMM_ROUTE_CODES = (("bf16 x bf16", 1, 1), ("bf16 x f32", 1, 0),
+                   ("f32 x f32", 0, 0))
 GMM_WIDE_LIMIT = 1024 * 512
 #: selective-scan sweep of phase 3, and the reference's tolerance for it
 #: (tests/test_kernels.py test_mamba_scan: 1e-4)
@@ -1372,21 +1385,45 @@ def attention_fallback(q, k, v):
     return o.reshape(B, S, H, hd).to(q.dtype)
 
 
-def raw_flash(q, k, v, causal: bool = True):
+def raw_flash(q, k, v, causal: bool = True, lse: bool = False):
     import torch
     out = torch.empty_like(q)
     B, S, H, hd = q.shape
+    ls = torch.empty((B, S, H), dtype=torch.float32, device=q.device) \
+        if lse else None
     return raw_launch("flash_attention", "flash_attention_launch", [
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, B, S,
-        H, k.shape[2], hd, 1 if q.dtype == torch.bfloat16 else 0,
-        int(causal),
-        torch.cuda.current_stream().cuda_stream], (q, k, v, out))
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if ls is None else ls.data_ptr(), B, S, H, k.shape[2], hd,
+        1 if q.dtype == torch.bfloat16 else 0, int(causal),
+        torch.cuda.current_stream().cuda_stream], (q, k, v, out, ls))
+
+
+def flash_bound(card: Card, q, k, lse: bool) -> tuple[float, str, float,
+                                                       float]:
+    """Least ms of causal attention on q's and k's shapes: 4 B H hd
+    S (S + 1) / 2 FLOP at the card's peak for the dtype, against q, k, v
+    read and o (and the f32 LSE) written once."""
+    B, S, H, hd = q.shape
+    flops = 4 * B * H * hd * S * (S + 1) / 2
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() + \
+        (4 * B * S * H if lse else 0)
+    bound, by = card.bound(nbytes, flops, PEAK_FLOPS[str(q.dtype)])
+    return bound, by, nbytes, flops
+
+
+def sdpa_ms(q, k, v, reps: int) -> float:
+    """Device ms of one causal ``scaled_dot_product_attention`` call on
+    (B, H, S, hd) copies of the inputs (GQA by ``enable_gqa``)."""
+    import torch.nn.functional as F
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    return cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), reps)
 
 
 def flash_line(card: Card, fa, launches: int) -> dict:
-    import torch
-    import torch.nn.functional as F
-
+    """The flash kernel at serve's typical prefill shape, with and without
+    the LSE, and at the train step's shape with the LSE, where it runs 16
+    times a step (random inputs)."""
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention_cuda)
     q, k, v = fa
@@ -1394,10 +1431,16 @@ def flash_line(card: Card, fa, launches: int) -> dict:
     Kv = k.shape[2]
     got = flash_attention_cuda(q, k, v, True)
     err = close(got, attention_ref(q, k, v, True), "flash_attention")
-    flops = 4 * B * H * hd * S * (S + 1) / 2
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    bound, by = card.bound(nbytes, flops, PEAK_FLOPS[str(q.dtype)])
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    bound, by, nbytes, flops = flash_bound(card, q, k, False)
+    tq, tk, tv = fa_inputs(np.random.default_rng(17), TRAIN_B, TRAIN_S, H,
+                           Kv, hd, str(q.dtype), q.device)
+    t_out, t_lse = flash_attention_cuda(tq, tk, tv, True, return_lse=True)
+    want, want_lse = attention_ref(tq, tk, tv, True, return_lse=True)
+    t_err = close(t_out, want, "flash_attention train shape")
+    t_lse_err = close(t_lse, want_lse, "flash_attention train shape lse",
+                      FA_TOL[str(q.dtype)])
+    del t_out, t_lse, want, want_lse
+    t_bound, t_by, t_bytes, t_flops = flash_bound(card, tq, tk, True)
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:79",
@@ -1406,14 +1449,22 @@ def flash_line(card: Card, fa, launches: int) -> dict:
                       "dtype": str(q.dtype), "causal": True},
             "max_abs_err": err,
             "ms": cuda_ms(raw_flash(q, k, v), 20),
+            "lse_ms": cuda_ms(raw_flash(q, k, v, lse=True), 20),
             "call_ms": cuda_ms(lambda: flash_attention_cuda(q, k, v), 10),
             "plain_ms": cuda_ms(lambda: attention_ref(q, k, v, True), 3),
             "bound_ms": bound, "bound_by": by, "bytes": nbytes,
             "flops": flops,
-            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True), 20),
+            "library_ms": sdpa_ms(q, k, v, 20),
             "library": "torch.nn.functional.scaled_dot_product_attention("
-                       "is_causal=True, enable_gqa=True), (B, H, S, hd)"}
+                       "is_causal=True, enable_gqa=True), (B, H, S, hd)",
+            "train": {"shape": {"B": TRAIN_B, "S": TRAIN_S, "H": H,
+                                "Kv": Kv, "hd": hd, "lse": True},
+                      "max_abs_err": t_err, "lse_max_abs_err": t_lse_err,
+                      "ms": cuda_ms(raw_flash(tq, tk, tv, lse=True), 10),
+                      "no_lse_ms": cuda_ms(raw_flash(tq, tk, tv), 10),
+                      "bound_ms": t_bound, "bound_by": t_by,
+                      "bytes": t_bytes, "flops": t_flops,
+                      "library_ms": sdpa_ms(tq, tk, tv, 10)}}
 
 
 def raw_gmm(x, w):
@@ -1440,7 +1491,11 @@ def gmm_bound(card: Card, x, w) -> tuple[float, str, int, float]:
 
 def gmm_line(card: Card, typical, launches: int, path: str) -> dict:
     """The grouped matmul at the checked prefill group's gate launch (the
-    path's own activations and weights) and at a decode launch's rows."""
+    path's own activations and f32 weights) and at a decode launch's rows,
+    each beside like-for-like PyTorch calls: the kernel's bf16-weight route
+    against ``torch.bmm`` on the same bf16 weights, and its f32-weight route
+    against ``w.to(torch.bfloat16)`` then ``torch.bmm`` (two calls, the cast
+    inside the timing)."""
     import torch
 
     from repro_torch.kernels.moe_gmm import moe_gmm_cuda, moe_gmm_ref
@@ -1448,11 +1503,33 @@ def gmm_line(card: Card, typical, launches: int, path: str) -> dict:
     E, M, d = x.shape
     f = w.shape[2]
     err = close(moe_gmm_cuda(x, w), moe_gmm_ref(x, w), "moe_gmm")
-    bound, by, nbytes, flops = gmm_bound(card, x, w)
     wb = w.to(x.dtype)
     xd = torch.randn((E, typical["moe_gmm_decode_rows"], d),
                      device=x.device).to(x.dtype)
-    d_bound, d_by, _, _ = gmm_bound(card, xd, w)
+    err = max(err, close(moe_gmm_cuda(x, wb), moe_gmm_ref(x, wb),
+                         "moe_gmm bf16 weights"),
+              close(moe_gmm_cuda(xd, w), moe_gmm_ref(xd, w), "moe_gmm decode"))
+    bound, by, nbytes, flops = gmm_bound(card, x, w)
+
+    def yardsticks(rows, reps: int) -> dict:
+        """Kernel and PyTorch ms of both weight routes at these rows."""
+        f_bound, f_by, _, _ = gmm_bound(card, rows, w)
+        b_bound, b_by, _, _ = gmm_bound(card, rows, wb)
+        return {"f32_weights": {
+                    "ms": cuda_ms(raw_gmm(rows, w), reps),
+                    "bound_ms": f_bound, "bound_by": f_by,
+                    "two_calls_ms": cuda_ms(
+                        lambda: torch.bmm(rows, w.to(torch.bfloat16)), reps),
+                    "two_calls": "w.to(torch.bfloat16) then torch.bmm, the "
+                                 "cast inside the timing"},
+                "bf16_weights": {
+                    "ms": cuda_ms(raw_gmm(rows, wb), reps),
+                    "bound_ms": b_bound, "bound_by": b_by,
+                    "library_ms": cuda_ms(lambda: torch.bmm(rows, wb), reps),
+                    "library": "torch.bmm on the same bf16 weights"}}
+
+    prefill = yardsticks(x, 10)
+    decode = {"M": xd.shape[1], **yardsticks(xd, 20)}
     return {"name": "moe_gmm", "route": "cuda",
             "source": "src/repro_torch/csrc/moe_gmm.cu",
             "replaces": "src/repro/kernels/moe_gmm/kernel.py:39",
@@ -1460,18 +1537,16 @@ def gmm_line(card: Card, typical, launches: int, path: str) -> dict:
             "shape": {"E": E, "M": M, "d": d, "f": f, "x": str(x.dtype),
                       "w": str(w.dtype)},
             "max_abs_err": err,
-            "ms": cuda_ms(raw_gmm(x, w), 10),
+            "ms": prefill["f32_weights"]["ms"],
             "call_ms": cuda_ms(lambda: moe_gmm_cuda(x, w), 5),
             "plain_ms": cuda_ms(lambda: moe_gmm_ref(x, w), 3),
             "bound_ms": bound, "bound_by": by, "bytes": nbytes,
             "flops": flops,
-            "library_ms": cuda_ms(lambda: torch.bmm(x, wb), 10),
-            "library": "torch.bmm(x, w in x's dtype); the weight cast is "
-                       "made once, outside the timing",
-            "decode": {"M": xd.shape[1], "ms": cuda_ms(raw_gmm(xd, w), 20),
-                       "bound_ms": d_bound, "bound_by": d_by,
-                       "library_ms": cuda_ms(lambda: torch.bmm(xd, wb),
-                                             20)}}
+            "library_ms": prefill["bf16_weights"]["library_ms"],
+            "library": "torch.bmm(x, w in x's dtype), the weights cast "
+                       "once outside the timing; like for like under "
+                       "\"prefill\" and \"decode\"",
+            "prefill": prefill, "decode": decode}
 
 
 def raw_scan(a: dict):
@@ -2189,7 +2264,10 @@ def main() -> int:
                                .flash_attention_smem_bytes(hd, code)
                                for hd in FA_SWEEP["hd"]
                                for dt, code in (("f32", 0), ("bf16", 1))},
-          "moe_gmm_smem_bytes": libs["moe_gmm"].moe_gmm_smem_bytes()})
+          "moe_gmm_smem_bytes": {f"{route} M={M}": libs["moe_gmm"]
+                                 .moe_gmm_smem_bytes(xc, wc, M)
+                                 for route, xc, wc in GMM_ROUTE_CODES
+                                 for M in (4, 448)}})
 
     t0 = time.perf_counter()
     emit({"phase": "kernels_vs_plain", "chacha20_xor": check_chacha(dev),

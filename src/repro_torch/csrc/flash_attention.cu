@@ -8,8 +8,7 @@
 // with no transpose copy, and writes o (B, S, H, hd) in q's dtype.
 //
 // One block owns one (batch, kv head, query tile) and all G = H / Kv query
-// heads of that group: kRows = 64 (query, head) rows, G rows per query
-// position, so a tile holds 64 / G query positions.  The K and V tiles of
+// heads of that group, G rows per query position.  The K and V tiles of
 // the group are staged into shared memory once and serve all G heads, as
 // the TPU kernel's (G * bq)-row blocks did.  A loop over kv tiles inside
 // the block takes the place of the TPU grid's sequential kv dimension; when
@@ -21,25 +20,27 @@
 // log-sum-exp m + log(max(denom, 1e-30)) of the scaled scores is written
 // there too (B, S, H) f32, as the JAX model's _fa_forward returns it for
 // the backward; serving passes null.  Each body is instantiated with and
-// without that write, so serving runs the body it ran before.  Two bodies share that decomposition:
-//   - bf16: the products on the tensor cores (mma.sync m16n8k16, bf16 in,
-//     f32 accumulate), the serving path's dtype;
-//   - f32: scalar f32 FMAs (4 threads per row, hd / 4 dims each), exact
-//     f32 math for the f32 configurations and the tests' 2e-5 tolerance.
+// without that write, so serving runs a body without the epilogue.  Two
+// bodies:
+//   - bf16 (the serving and training dtype): the products on the tensor
+//     cores (mma.sync m16n8k16, bf16 in, f32 accumulate), 128 (query, head)
+//     rows a block; see its section below;
+//   - f32: scalar f32 FMAs, 64 rows a block (4 threads per row, hd / 4 dims
+//     each), exact f32 math for the f32 configurations and the tests' 2e-5
+//     tolerance.
 //
-// Bound on an H100: at the serving shapes (S in the hundreds to thousands,
-// hd 128) attention does ~S/2 multiply-adds per byte it must move, far
-// above the card's balance, so it is bound by arithmetic: the tensor
-// cores' 989 TFLOP/s (bf16 dense).  What the design does about it: every
-// K/V element is read from device memory once per block for G heads at
-// once, kv tiles wholly above the diagonal are skipped, the longest causal
-// rows are scheduled first, and the bf16 body feeds the tensor cores from
-// registers and conflict-free shared memory.  mma.sync reaches only part of
-// the Hopper tensor-core rate, and nothing overlaps the tile loads with the
-// products; wgmma, TMA and a warp-specialised pipeline are later work.
-// Shared memory stays under the 48 KB static limit (see
-// flash_attention_smem_bytes).  The kernel allocates nothing and does not
-// synchronise.
+// Bound on an H100: at the serving and training shapes (S in the hundreds
+// to thousands, hd 128) attention does ~S/2 multiply-adds per byte it must
+// move, far above the card's balance, so it is bound by arithmetic: the
+// tensor cores' 989 TFLOP/s (bf16 dense).  What the design does about it:
+// every K/V element is read from device memory once per block for G heads
+// at once; kv tiles wholly above the diagonal are skipped; the longest
+// causal rows are scheduled first across the whole grid; the bf16 body
+// keeps the next kv tiles' asynchronous copies in flight while the current
+// one is multiplied, and feeds the tensor cores through ldmatrix.  mma.sync
+// reaches only part of Hopper's tensor-core rate; wgmma, TMA and a
+// warp-specialised pipeline are later work.  The kernel allocates nothing
+// and does not synchronise.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -50,6 +51,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kRows = 64;                  // (query, head) rows per block
+constexpr int kMaxGroup = 64;              // largest H / Kv taken
 constexpr int kTpr = kThreads / kRows;     // threads per row
 constexpr int kBk = 32;                    // keys per shared-memory tile
 constexpr float kNegInf = -1e30f;
@@ -176,21 +178,85 @@ flash_attention_kernel(const float* __restrict__ q,
 }
 
 // ------------------------------------------------ bf16 on tensor cores ----
-// The same block decomposition with the products on the tensor cores:
-// mma.sync m16n8k16, bf16 inputs, f32 accumulation.  Four warps of 16 rows
-// each; Q stays in registers as A fragments, each K tile is staged row-major
-// and each V tile transposed (so every B fragment is one 32-bit shared load),
-// both with 8 elements of padding per row against bank conflicts.  The
-// probabilities are rounded to bf16 for the PV product, as the JAX model's
-// XLA fallback does (p.astype(v.dtype)); scores, max, denominator and the
-// output accumulator stay f32.
-constexpr int kMmaThreads = 128;           // 4 warps x 16 rows = kRows
-constexpr int kMmaBk = 64;                 // keys per tile
+// The same decomposition with the products on the tensor cores: mma.sync
+// m16n8k16, bf16 inputs, f32 accumulation.  Eight warps of 16 rows each,
+// 128 (query, head) rows a block, so each K/V byte staged serves 128 rows.
+//   - Q, K and V tiles are copied by cp.async.cg, consecutive threads taking
+//     consecutive 16-byte chunks of one row (coalesced), into dynamic shared
+//     memory: Q once, K and V through a ring of kFaStages kv tiles of 64
+//     keys (two: a third measured no faster), so the copies of the next
+//     tile are in flight while the current one is multiplied; one
+//     __syncthreads a kv tile.  Keys past S and rows
+//     past the block's queries are zero-filled by the copy's source size.
+//   - Rows are padded to hd + 8 elements (2 hd + 16 bytes, 16 mod 128), so
+//     the eight rows an ldmatrix phase reads fall on distinct banks.  Q
+//     fragments come from ldmatrix once, into registers; K fragments from
+//     ldmatrix (K's rows are the product's columns); V stays row-major and
+//     the PV fragments come from ldmatrix.trans: no transpose in shared
+//     memory.
+//   - The softmax runs in base 2: the scores are scaled by scale * log2 e
+//     and exponentiated with exp2f; the running max and denominator are
+//     f32, and the LSE is written in natural log, m ln 2 + log(max(den,
+//     1e-30)).  The probabilities are rounded to bf16 for the PV product,
+//     as the JAX model's XLA fallback does (p.astype(v.dtype)).
+// At hd 128 a thread holds 32 Q-fragment, 64 output and 32 score registers,
+// so one block of 256 threads fits an SM (both instantiations; the
+// three-block limit of the 64-row design no longer applies); at hd 64 two
+// blocks fit.
+constexpr int kFaThreads = 256;            // 8 warps x 16 rows
+constexpr int kFaRows = 128;               // (query, head) rows per block
+constexpr int kFaBk = 64;                  // keys per kv tile
+constexpr int kFaStages = 2;               // kv tiles in the ring
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// Byte layout of the dynamic shared memory: Q (128 rows), then kFaStages
+// x (K tile, V tile) of 64 rows, every row hd + 8 elements.
+template <int HD>
+struct FaSmem {
+  static constexpr int kLd = HD + 8;
+  static constexpr int kQ = kFaRows * kLd * 2;
+  static constexpr int kKV = kFaBk * kLd * 2;
+  static constexpr int kBytes = kQ + kFaStages * 2 * kKV;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte asynchronous copy; bytes past src_bytes (0 or 16) are zero-filled
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -209,92 +275,146 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Three blocks of 128 threads fit an SM only at <= 168 registers a thread
-// (registers are allocated 256 a warp); at hd 128 the LSE epilogue alone
-// took the body to 170, two blocks an SM and 15 % slower, so hd 128 asks
-// for three.  hd 64 keeps three blocks at the 140-167 registers it takes.
+// Copies kv tile [k0, k0 + 64) of (batch, kv head) into K and V stages;
+// keys at or past S are zeros.
+template <int HD>
+__device__ __forceinline__ void load_kv(bf16* ks, bf16* vs,
+                                        const bf16* __restrict__ k,
+                                        const bf16* __restrict__ v,
+                                        int64_t kv_base, int64_t kv_stride,
+                                        int k0, int S) {
+  constexpr int kCh = HD / 8;              // 16-byte chunks a row
+  constexpr int kLd = FaSmem<HD>::kLd;
+#pragma unroll
+  for (int i = 0; i < kFaBk * kCh / kFaThreads; ++i) {
+    const int c = threadIdx.x + i * kFaThreads;
+    const int j = c / kCh;
+    const int col = (c % kCh) * 8;
+    const bool ok = k0 + j < S;
+    const int64_t at = ok ? kv_base + (k0 + j) * kv_stride + col : 0;
+    cp_async16(ks + j * kLd + col, k + at, ok ? 16 : 0);
+    cp_async16(vs + j * kLd + col, v + at, ok ? 16 : 0);
+  }
+}
+
+// grid: one block per (query tile, kv head, batch), flattened with the
+// query tile slowest and taken longest rows first.  Dynamic shared memory:
+// FaSmem<HD>::kBytes.
 template <int HD, bool kLse>
-__global__ void __launch_bounds__(kMmaThreads, HD >= 128 ? 3 : 1)
+__global__ void __launch_bounds__(kFaThreads, HD >= 128 ? 1 : 2)
 flash_attention_mma_kernel(const bf16* __restrict__ q,
                            const bf16* __restrict__ k,
                            const bf16* __restrict__ v, bf16* __restrict__ o,
                            float* __restrict__ lse, int S, int H, int Kv,
-                           int G, int bq, float scale, int causal) {
+                           int B, int G, int bq, float scale_log2,
+                           int causal) {
+  using L = FaSmem<HD>;
+  constexpr int kLd = L::kLd;
   constexpr int KS = HD / 16;              // k-steps over the head dim
-  constexpr int NT = kMmaBk / 8;           // key n-tiles per kv tile
+  constexpr int NT = kFaBk / 8;            // key n-tiles per kv tile
   constexpr int OT = HD / 8;               // output n-tiles
-  constexpr int KLD = HD + 8;              // K tile row stride (elements)
-  constexpr int VLD = kMmaBk + 8;          // V^T tile row stride
-  __shared__ __align__(16) bf16 ks[kMmaBk * KLD];
-  __shared__ __align__(16) bf16 vt[HD * VLD];
+  constexpr int kCh = HD / 8;              // 16-byte chunks a row
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem);
+  auto kst = [&](int t) {
+    return reinterpret_cast<bf16*>(smem + L::kQ +
+                                   (t % kFaStages) * 2 * L::kKV);
+  };
+  auto vst = [&](int t) {
+    return reinterpret_cast<bf16*>(smem + L::kQ +
+                                   (t % kFaStages) * 2 * L::kKV + L::kKV);
+  };
 
-  const int qt = gridDim.x - 1 - blockIdx.x;  // longest causal rows first
-  const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
+  const int groups = Kv * B;
+  const int qt = (gridDim.x - 1 - blockIdx.x) / groups;  // longest first
+  const int kvh = blockIdx.x % Kv;
+  const int b = (blockIdx.x / Kv) % B;
   const int q0 = qt * bq;
+  const int nrows = G * min(bq, S - q0);   // rows r < nrows are live
   const int warp = threadIdx.x / 32;
-  const int gid = (threadIdx.x % 32) / 4;     // fragment row group
-  const int tig = threadIdx.x % 4;            // thread in group
-  // this thread's two rows: gid and gid + 8 of the warp's 16
-  int qpos[2];
-  bool live[2];
-  int64_t row[2];
+  const int lane = threadIdx.x % 32;
+  const int gid = lane / 4;                // fragment row group
+  const int tig = lane % 4;                // thread in group
+
+  const int q_last = min(S, q0 + bq) - 1;
+  const int k_end = causal ? q_last + 1 : S;
+  const int nkt = (k_end + kFaBk - 1) / kFaBk;
+  const int64_t kv_stride = static_cast<int64_t>(Kv) * HD;
+  const int64_t kv_base = (static_cast<int64_t>(b) * S * Kv + kvh) * HD;
+  // row r: query q0 + r / G, head kvh * G + r % G; the G rows of one query
+  // are contiguous in q and o
+  const int64_t q_base =
+      ((static_cast<int64_t>(b) * S + q0) * H + static_cast<int64_t>(kvh) * G)
+      * HD;
+  auto row_at = [&](int r) {
+    return q_base + (static_cast<int64_t>(r / G) * H + r % G) * HD;
+  };
+
+  // group 0: Q and kv tile 0; then tiles 1 .. kFaStages - 2
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = warp * 16 + gid + 8 * i;
-    qpos[i] = q0 + r / G;
-    live[i] = r < G * bq && qpos[i] < S;
-    row[i] = ((static_cast<int64_t>(b) * S + qpos[i]) * H + kvh * G + r % G) *
-             HD;
+  for (int i = 0; i < kFaRows * kCh / kFaThreads; ++i) {
+    const int c = threadIdx.x + i * kFaThreads;
+    const int r = c / kCh;
+    const int col = (c % kCh) * 8;
+    const bool ok = r < nrows;
+    cp_async16(qs + r * kLd + col, q + (ok ? row_at(r) + col : 0),
+               ok ? 16 : 0);
   }
+#pragma unroll 1
+  for (int t = 0; t < kFaStages - 1; ++t) {
+    if (t < nkt)
+      load_kv<HD>(kst(t), vst(t), k, v, kv_base, kv_stride, t * kFaBk, S);
+    cp_async_commit();
+  }
+  cp_async_wait<kFaStages - 2>();
+  __syncthreads();
   uint32_t qf[KS][4];
 #pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    const int c = 16 * kk + 2 * tig;
-    qf[kk][0] = live[0] ? ld32(q + row[0] + c) : 0u;
-    qf[kk][1] = live[1] ? ld32(q + row[1] + c) : 0u;
-    qf[kk][2] = live[0] ? ld32(q + row[0] + c + 8) : 0u;
-    qf[kk][3] = live[1] ? ld32(q + row[1] + c + 8) : 0u;
-  }
+  for (int kk = 0; kk < KS; ++kk)
+    ldmatrix_x4(qf[kk], qs + (16 * warp + (lane & 15)) * kLd + 16 * kk +
+                            (lane >> 4) * 8);
+
+  // this thread's two rows: gid and gid + 8 of the warp's 16
+  int qpos[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) qpos[i] = q0 + (16 * warp + gid + 8 * i) / G;
   float oacc[OT][4];
 #pragma unroll
   for (int t = 0; t < OT; ++t)
     oacc[t][0] = oacc[t][1] = oacc[t][2] = oacc[t][3] = 0.f;
   float m[2] = {kNegInf, kNegInf}, den[2] = {0.f, 0.f};
 
-  const int q_last = min(S, q0 + bq) - 1;
-  const int k_end = causal ? q_last + 1 : S;
-  const int64_t kv_stride = static_cast<int64_t>(Kv) * HD;
-  const int64_t kv_base = (static_cast<int64_t>(b) * S * Kv + kvh) * HD;
-
-  for (int k0 = 0; k0 < k_end; k0 += kMmaBk) {
+#pragma unroll 1
+  for (int t = 0; t < nkt; ++t) {
+    cp_async_wait<kFaStages - 2>();        // tile t landed
+    // every thread's copies visible; the products of t - 1 done, so its
+    // stage may be refilled
     __syncthreads();
-    // neighbouring threads take neighbouring keys of one 8-element chunk
-    for (int i = threadIdx.x; i < kMmaBk * HD / 8; i += kMmaThreads) {
-      const int j = i % kMmaBk;
-      const int c = (i / kMmaBk) * 8;
-      uint4 kx = make_uint4(0u, 0u, 0u, 0u), vx = kx;
-      if (k0 + j < S) {
-        const int64_t at = kv_base + (k0 + j) * kv_stride + c;
-        kx = *reinterpret_cast<const uint4*>(k + at);
-        vx = *reinterpret_cast<const uint4*>(v + at);
-      }
-      *reinterpret_cast<uint4*>(&ks[j * KLD + c]) = kx;
-      const bf16* ve = reinterpret_cast<const bf16*>(&vx);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) vt[(c + e) * VLD + j] = ve[e];
-    }
-    __syncthreads();
+    const int next = t + kFaStages - 1;
+    if (next < nkt)
+      load_kv<HD>(kst(next), vst(next), k, v, kv_base, kv_stride,
+                  next * kFaBk, S);
+    cp_async_commit();
 
+    const bf16* kt = kst(t);
+    const bf16* vt = vst(t);
+    const int k0 = t * kFaBk;
+    // S = Q K^T: one ldmatrix.x4 gives an n-tile's B fragments for two
+    // k-steps
     float sacc[NT][4];
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
       sacc[n][0] = sacc[n][1] = sacc[n][2] = sacc[n][3] = 0.f;
-      const bf16* kr = &ks[(8 * n + gid) * KLD + 2 * tig];
 #pragma unroll
-      for (int kk = 0; kk < KS; ++kk)
-        mma_bf16(sacc[n], qf[kk], ld32(kr + 16 * kk), ld32(kr + 16 * kk + 8));
+      for (int kk = 0; kk < KS; kk += 2) {
+        uint32_t r[4];
+        ldmatrix_x4(r, kt + (8 * n + (lane & 7)) * kLd + 16 * kk +
+                           (lane >> 3) * 8);
+        mma_bf16(sacc[n], qf[kk], r[0], r[1]);
+        mma_bf16(sacc[n], qf[kk + 1], r[2], r[3]);
+      }
     }
+    const bool edge = k0 + kFaBk > S || (causal && k0 + kFaBk - 1 > q0);
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
@@ -302,8 +422,9 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
       for (int e = 0; e < 4; ++e) {
         const int i = e >> 1;
         const int kpos = k0 + 8 * n + 2 * tig + (e & 1);
-        const bool masked = kpos >= S || (causal && kpos > qpos[i]);
-        sacc[n][e] = masked ? kNegInf : sacc[n][e] * scale;
+        const bool masked =
+            edge && (kpos >= S || (causal && kpos > qpos[i]));
+        sacc[n][e] = masked ? kNegInf : sacc[n][e] * scale_log2;
         mx[i] = fmaxf(mx[i], sacc[n][e]);
       }
     }
@@ -312,14 +433,14 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
     for (int i = 0; i < 2; ++i) {
       mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
       mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      corr[i] = expf(m[i] - mx[i]);
+      corr[i] = exp2f(m[i] - mx[i]);
       m[i] = mx[i];
     }
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        sacc[n][e] = expf(sacc[n][e] - m[e >> 1]);
+        sacc[n][e] = exp2f(sacc[n][e] - m[e >> 1]);
         psum[e >> 1] += sacc[n][e];
       }
     }
@@ -327,12 +448,14 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
     den[0] = den[0] * corr[0] + psum[0];
     den[1] = den[1] * corr[1] + psum[1];
 #pragma unroll
-    for (int t = 0; t < OT; ++t) {
-      oacc[t][0] *= corr[0];
-      oacc[t][1] *= corr[0];
-      oacc[t][2] *= corr[1];
-      oacc[t][3] *= corr[1];
+    for (int j = 0; j < OT; ++j) {
+      oacc[j][0] *= corr[0];
+      oacc[j][1] *= corr[0];
+      oacc[j][2] *= corr[1];
+      oacc[j][3] *= corr[1];
     }
+    // O += P V: V row-major, B fragments of two output n-tiles from one
+    // ldmatrix.x4.trans
 #pragma unroll
     for (int kk = 0; kk < NT / 2; ++kk) {
       const uint32_t pa[4] = {pack_bf16(sacc[2 * kk][0], sacc[2 * kk][1]),
@@ -342,12 +465,16 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
                               pack_bf16(sacc[2 * kk + 1][2],
                                         sacc[2 * kk + 1][3])};
 #pragma unroll
-      for (int t = 0; t < OT; ++t) {
-        const bf16* vr = &vt[(8 * t + gid) * VLD + 16 * kk + 2 * tig];
-        mma_bf16(oacc[t], pa, ld32(vr), ld32(vr + 8));
+      for (int j = 0; j < OT / 2; ++j) {
+        uint32_t r[4];
+        ldmatrix_x4_trans(r, vt + (16 * kk + (lane & 15)) * kLd + 16 * j +
+                                 (lane >> 4) * 8);
+        mma_bf16(oacc[2 * j], pa, r[0], r[1]);
+        mma_bf16(oacc[2 * j + 1], pa, r[2], r[3]);
       }
     }
   }
+  cp_async_wait<0>();
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -356,13 +483,15 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
   }
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    if (!live[i]) continue;
+    const int r = 16 * warp + gid + 8 * i;
+    if (r >= nrows) continue;
+    const int64_t row = row_at(r);
     const float d = fmaxf(den[i], 1e-30f);
-    if (kLse && tig == 0) lse[row[i] / HD] = m[i] + logf(d);
+    if (kLse && tig == 0) lse[row / HD] = m[i] * kLn2 + logf(d);
 #pragma unroll
-    for (int t = 0; t < OT; ++t)
-      *reinterpret_cast<uint32_t*>(o + row[i] + 8 * t + 2 * tig) =
-          pack_bf16(oacc[t][2 * i] / d, oacc[t][2 * i + 1] / d);
+    for (int j = 0; j < OT; ++j)
+      *reinterpret_cast<uint32_t*>(o + row + 8 * j + 2 * tig) =
+          pack_bf16(oacc[j][2 * i] / d, oacc[j][2 * i + 1] / d);
   }
 }
 
@@ -396,14 +525,24 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 float* lse, int64_t B, int64_t S, int64_t H, int64_t Kv,
                 int causal, cudaStream_t stream) {
   const int G = static_cast<int>(H / Kv);
-  const int bq = kRows / G;
+  const int bq = kFaRows / G;
+  const int64_t blocks = (S + bq - 1) / bq * Kv * B;
+  if (blocks > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
   auto* kernel = lse != nullptr ? flash_attention_mma_kernel<HD, true>
                                 : flash_attention_mma_kernel<HD, false>;
-  kernel<<<grid_of(B, S, Kv, bq), kMmaThreads, 0, stream>>>(
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      FaSmem<HD>::kBytes);
+  if (err != cudaSuccess) {
+    cudaGetLastError();              // the error is returned, not left set
+    return static_cast<int>(err);
+  }
+  kernel<<<static_cast<unsigned>(blocks), kFaThreads, FaSmem<HD>::kBytes,
+           stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), lse,
-      static_cast<int>(S), static_cast<int>(H), static_cast<int>(Kv), G, bq,
-      softmax_scale(HD), causal);
+      static_cast<int>(S), static_cast<int>(H), static_cast<int>(Kv),
+      static_cast<int>(B), G, bq, softmax_scale(HD) * kLog2e, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -411,16 +550,18 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
 
 // q, o: (B, S, H, hd); k, v: (B, S, Kv, hd); contiguous, 16-byte aligned,
 // all of one dtype: 0 = float32, 1 = bfloat16.  lse: (B, S, H) f32, or
-// null to skip it.  hd in {64, 128}, H a
-// multiple of Kv with H / Kv <= 64.  Launches on `stream`; returns
-// cudaGetLastError() (cudaErrorInvalidValue for a shape it does not take).
+// null to skip it.  hd in {64, 128}, H a multiple of Kv with H / Kv <= 64.
+// Launches on `stream`; returns the error of the shared-memory attribute
+// call or cudaGetLastError() after the launch (cudaErrorInvalidValue for a
+// shape it does not take).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, void* lse,
                                       int64_t B, int64_t S, int64_t H,
                                       int64_t Kv, int64_t hd, int dtype,
                                       int causal, void* stream) {
   if (B <= 0 || S <= 0) return 0;
-  if (Kv <= 0 || H % Kv != 0 || H / Kv > kRows || S > INT32_MAX / H)
+  if (Kv <= 0 || H % Kv != 0 || H / Kv > kMaxGroup || S > INT32_MAX / H ||
+      B > INT32_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
   auto* l = static_cast<float*>(lse);
@@ -435,10 +576,11 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Shared memory one block uses at head dim `hd` for `dtype` (bytes).
+// Shared memory one block uses at head dim `hd` for `dtype` (bytes): the
+// dynamic Q tile and kv ring of the bf16 body, the static K and V tiles of
+// the f32 body.
 extern "C" int64_t flash_attention_smem_bytes(int64_t hd, int dtype) {
   if (dtype == 1)
-    return (kMmaBk * (hd + 8) + hd * (kMmaBk + 8)) *
-           static_cast<int64_t>(sizeof(bf16));
+    return hd == 64 ? FaSmem<64>::kBytes : FaSmem<128>::kBytes;
   return 2 * kBk * hd * static_cast<int64_t>(sizeof(float));
 }

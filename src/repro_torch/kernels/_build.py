@@ -26,6 +26,10 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: ``libcuda``, for the tensor maps of TMA copies
+#: (``cuTensorMapEncodeTiled``); linked against the toolkit's stub, the
+#: system's ``libcuda.so.1`` is loaded at run time
+LIBS = ("-lcuda",)
 
 _P, _I64, _U32, _INT = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32,
                         ctypes.c_int)
@@ -49,7 +53,7 @@ SIGNATURES: dict[str, dict[str, tuple[list, type]]] = {
     "moe_gmm": {
         "moe_gmm_launch": (
             [_P, _P, _P, _I64, _I64, _I64, _I64, _INT, _INT, _P], _INT),
-        "moe_gmm_smem_bytes": ([], _I64),
+        "moe_gmm_smem_bytes": ([_INT, _INT, _I64], _I64),
     },
     "quantize": {
         "quantize_int8_launch": ([_P, _INT, _P, _P, _P, _I64, _I64, _P],
@@ -90,9 +94,17 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def command(nvcc: str, src: Path, out: Path) -> list[str]:
+    """The ``nvcc`` command line that builds ``src`` into the shared library
+    ``out``."""
+    stubs = Path(nvcc).resolve().parents[1] / "lib64" / "stubs"
+    return [nvcc, *NVCC_FLAGS, "-o", str(out), str(src), f"-L{stubs}",
+            *LIBS]
+
+
 def _digest(nvcc: str) -> str:
     h = hashlib.sha256()
-    h.update(" ".join((nvcc,) + NVCC_FLAGS).encode())
+    h.update(" ".join(command(nvcc, Path("src"), Path("out"))).encode())
     for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -119,7 +131,7 @@ def build_all() -> dict[str, ctypes.CDLL]:
                 continue
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
             procs[name] = (tmp, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+                command(nvcc, CSRC / f"{name}.cu", tmp),
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
         failed = []
         for name, (tmp, proc) in procs.items():

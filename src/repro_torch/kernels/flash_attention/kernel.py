@@ -10,8 +10,9 @@ transposes to (B, Kv, G, S, hd) have no counterpart here.  One block owns
 a (batch, kv head, query tile) and all G = H / Kv heads of the group, and
 stages each K/V tile in shared memory once for them.  At the serving and
 training shapes it is bound by arithmetic (the tensor cores' bf16 rate).
-bf16 inputs run on the tensor cores (``mma.sync``, f32 accumulation), f32
-inputs on scalar f32 FMAs (see the source's note and ``PERF.md``).
+bf16 inputs run on the tensor cores (``mma.sync``, f32 accumulation, K and
+V through a ring of asynchronous copies), f32 inputs on scalar f32 FMAs (see
+the source's note and ``PERF.md``).
 
 :func:`flash_attention_cuda` checks its inputs and raises on anything the
 kernel does not take; it never falls back to the plain version.
@@ -26,7 +27,8 @@ __all__ = ["HEAD_DIMS", "MAX_GROUP", "flash_attention_cuda"]
 
 #: head dims the kernel is instantiated for
 HEAD_DIMS = (64, 128)
-#: largest H / Kv: one block holds 64 (query, head) rows
+#: largest H / Kv: a block holds all G heads of its queries (128 (query,
+#: head) rows in the bf16 body, 64 in the f32 one)
 MAX_GROUP = 64
 #: kernel dtype codes
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}

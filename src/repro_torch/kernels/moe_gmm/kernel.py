@@ -7,13 +7,15 @@ result in x's dtype.  Unlike the TPU kernel it takes any row count M and
 any d and f (the ragged edges are masked in the kernel), so the model hands
 it the (E, G * C, d) rows of its capacity dispatch as they are.  Three
 routes:
-  - x bf16, w bf16: the tensor cores (``mma.sync``, f32 accumulation);
-  - x bf16, w f32: the same, with each weight rounded to bf16 as it is
-    loaded (``__float2bfloat16_rn``, bit for bit ``w.to(torch.bfloat16)``),
-    so the model's f32 expert weights need no cast copy;
+  - x bf16, w bf16: the tensor cores (Hopper's ``wgmma``, f32
+    accumulation), fed by a ring of asynchronous copies;
+  - x bf16, w f32: the same, with each weight rounded to bf16 once in
+    shared memory (``__floats2bfloat162_rn``, bit for bit
+    ``w.to(torch.bfloat16)``), so the model's f32 expert weights need no
+    cast copy;
   - x f32, w f32: scalar f32 FMAs (exact f32 for the f32 configurations).
-At the serving shapes a prefill launch is bound by arithmetic (the tensor
-cores' bf16 rate) and a decode launch by the bytes of the weights.
+At the serving shapes (f32 weights) both a prefill launch and a decode
+launch are bound by the bytes of the weights (see the source's note).
 
 :func:`moe_gmm_cuda` checks its inputs and raises on anything the kernel
 does not take; it never falls back to the plain version.

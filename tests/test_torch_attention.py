@@ -87,6 +87,33 @@ def test_flash_attention_matches_model_fallback(B, S, H, Kv, hd, dtype):
     np.testing.assert_allclose(f32(got), f32(want), **TOL[dtype])
 
 
+#: sequence lengths on each side of the CUDA bf16 body's 64-key tiles and
+#: (at G 4 and 8) its 32- and 16-query tiles, and serve's prefill group
+EDGE_S = [63, 65, 129, 1237]
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("G", [4, 8])
+@pytest.mark.parametrize("S", EDGE_S)
+def test_flash_attention_plain_matches_jax_at_tile_edges(S, G, hd):
+    """The plain version, which the CUDA kernel is held against on the
+    card, against the JAX package at the kernel's tile edges: the output
+    against the Pallas kernel in interpret mode (one block of S, the only
+    block that divides these S) in f32 and bf16, and the LSE against the
+    JAX model's ``_fa_forward`` (one query block), causal."""
+    arrays = qkv(1, S, G, 1, hd, seed=S + G + hd)
+    for dtype in ("float32", "bfloat16"):
+        (jq, tq), (jk, tk), (jv, tv) = (pair(a, dtype) for a in arrays)
+        got, lse = flash_attention(tq, tk, tv, causal=True, return_lse=True)
+        want = flash_attention_tpu(jq, jk, jv, causal=True, block_q=S,
+                                   block_k=S, interpret=True)
+        np.testing.assert_allclose(f32(got), f32(want), **TOL[dtype])
+        if dtype == "float32":
+            _, jlse = jattn._fa_forward(jq, jk, jv, S, True)
+            np.testing.assert_allclose(lse.numpy(), np.asarray(jlse),
+                                       **TOL[dtype])
+
+
 def test_plain_version_is_the_reference_oracle():
     """``attention_ref`` against the JAX package's naive oracle."""
     from repro.kernels.flash_attention import attention_ref as jref
@@ -207,11 +234,17 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
+#: the tile edges at G 4 and 8, hd 64 and 128, on the card
+EDGE_CUDA_SHAPES = [(1, S, 4 * G, 4, hd) for S in EDGE_S for G in (4, 8)
+                    for hd in (64, 128)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("B,S,H,Kv,hd", [(1, 1, 8, 8, 64), (2, 77, 32, 8, 128),
-                                         (1, 300, 16, 2, 64)])
+                                         (1, 300, 16, 2, 64),
+                                         *EDGE_CUDA_SHAPES])
 def test_flash_attention_cuda_matches_plain(cuda_device, B, S, H, Kv, hd,
                                             causal, dtype):
     td = DT[dtype][1]
@@ -223,3 +256,22 @@ def test_flash_attention_cuda_matches_plain(cuda_device, B, S, H, Kv, hd,
     torch.testing.assert_close(got.float(),
                                attention_ref(q, k, v, causal).float(),
                                **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S,H,Kv,hd", EDGE_CUDA_SHAPES)
+def test_flash_attention_cuda_lse_matches_plain(cuda_device, B, S, H, Kv, hd,
+                                                causal, dtype):
+    """The instantiation with the LSE epilogue at the tile edges: the
+    output the same as without the LSE, and the LSE within the output's
+    tolerance of the plain version's."""
+    td = DT[dtype][1]
+    q, k, v = (torch.from_numpy(a).to(cuda_device, td)
+               for a in qkv(B, S, H, Kv, hd, seed=S))
+    got, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+    want, want_lse = attention_ref(q, k, v, causal, return_lse=True)
+    assert torch.equal(got, flash_attention(q, k, v, causal=causal))
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    torch.testing.assert_close(lse, want_lse, **TOL[dtype])

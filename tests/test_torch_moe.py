@@ -87,6 +87,44 @@ def test_moe_gmm_plain_ragged_matches_ref(E, M, d, f):
                                    f32(jmoe_gmm_ref(jx, jw)), **TOL[dtype])
 
 
+# the CUDA kernel's tile edges: M 63 / 64 / 65 around the decode
+# configuration's 64 rows, 448 = two 224-row tiles, a decode launch's 4
+# rows; d 72 (fewer 32-deep K tiles than the ring's stages, a ragged one)
+# and 100 (not a multiple of 8); f 264 (a ragged 128-column tile) and 1,030
+# (not a multiple of 4).  (E, M, d, f, Pallas blocks (bc, bf, bd) or None
+# where no block divides the shape, which the JAX ``ref`` then takes)
+EDGE_SHAPES = [
+    (1, 63, 72, 264, None),
+    (1, 64, 128, 256, (64, 128, 128)),
+    (2, 65, 100, 1030, None),
+    (1, 448, 128, 128, (64, 128, 128)),
+    (2, 4, 100, 264, None),
+]
+
+
+@pytest.mark.parametrize("route", ["f32", "bf16", "bf16_f32w"])
+@pytest.mark.parametrize("E,M,d,f,blocks", EDGE_SHAPES)
+def test_moe_gmm_plain_matches_jax_at_tile_edges(E, M, d, f, blocks, route):
+    """The plain version, which the CUDA kernel is held against on the
+    card, against the JAX package at the kernel's tile edges, on each of
+    the kernel's routes (x, w) = (f32, f32), (bf16, bf16), (bf16, f32)."""
+    x, w = gmm_inputs(E, M, d, f, seed=M + d)
+    dtype = "float32" if route == "f32" else "bfloat16"
+    jx, tx = pair(x, dtype)
+    jw, tw = pair(w, dtype)
+    if route == "bf16_f32w":
+        tw = torch.from_numpy(w)        # the model's f32 expert weights
+    got = grouped_matmul(tx, tw)
+    assert got.dtype == DT[dtype][1] and got.shape == (E, M, f)
+    if blocks is None:
+        want = jmoe_gmm_ref(jx, jw)
+    else:
+        bc, bf, bd = blocks
+        want = moe_gmm(jx, jw, block_c=bc, block_f=bf, block_d=bd,
+                       interpret=True)
+    np.testing.assert_allclose(f32(got), f32(want), **TOL[dtype])
+
+
 def test_moe_gmm_bf16_activations_f32_weights_round_weights_first():
     """The model's route: bf16 rows, f32 expert weights taken in bf16 at
     use, as the JAX model's ``p["gate"].astype(x.dtype)`` does."""
@@ -200,7 +238,9 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("route", ["bf16", "bf16_f32w", "f32"])
 @pytest.mark.parametrize("E,M,d,f", [(1, 1, 64, 100), (16, 200, 1024, 512),
-                                     (3, 7, 24, 8)])
+                                     (3, 7, 24, 8),
+                                     *(shape[:4] for shape in EDGE_SHAPES),
+                                     (16, 448, 4096, 1030)])
 def test_moe_gmm_cuda_matches_plain(cuda_device, E, M, d, f, route):
     x, w = (torch.from_numpy(a).to(cuda_device)
             for a in gmm_inputs(E, M, d, f, seed=M))
