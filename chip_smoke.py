@@ -50,7 +50,9 @@ prints one JSON line per phase:
                  tokens whose experts differ when the plain prefill routes
                  on its own are counted, with that prefill's logits.  Prints
                  tokens/s, time to first token, completions, cache hits,
-                 peak memory, launches and the layer cut (``reduced``);
+                 peak memory, launches and the layer cut (``reduced``),
+                 and per kernel of the path its device ms a run: each
+                 (B, S) it was launched at, times its raw-launch ms there;
   7. train — ``Trainer(cfg, compress="int8")`` on qwen3-8b at full width
                  cut to 8 layers (``reduced``), weights random f32 from a
                  seeded generator, batch 1 x 4,096, lr 3e-4, 5 steps.
@@ -82,10 +84,12 @@ G in {1, 2, 4, 8}, hd in {64, 128}, S in {1, 7, 63, 65, 128, 129, 1000,
 and 2e-5), 576 cases; the grouped matmul over E in {1, 16, 32}, M in {1,
 2, 7, 63, 64, 65, 200, 448, 800}, six (d, f) widths and its three dtype
 routes (same tolerances), 432 cases; and the selective
-scan over B in {1, 4}, S in {1, 7, 128, 1000}, di in {64, 8192}, from a zero
-and a carried state (1e-4); and the WKV scan over B in {1, 4}, S in {1, 7,
-64, 1000, 1421}, H in {4, 40}, hd in {16, 32, 64}, from a zero and a
-carried state (1e-4 of the plain version's largest value plus 1e-4); the
+scan over B in {1, 4}, S in {1, 7, 31, 32, 33, 128, 1000}, di in {64, 100,
+8192, 8196}, from a zero and a carried state (1e-4), 112 cases; and the
+WKV scan over B in {1, 4}, S in {1, 7, 15, 16, 17, 64, 1000, 1421}, H in
+{4, 40, 70}, hd in {16, 32, 64}, from a zero and a carried state (1e-4 of
+the plain version's largest value plus 1e-4), 288 cases and one with rows off
+16-byte alignment; both scans again in place, bit-equal to out of place; the
 flash kernel's LSE beside its output; and the quantize pair bit for bit
 over R in {1, 3, 256}, D in {1, 127, 4,097, 1,048,576}, f32 and bf16 in
 and out, one 622,329,856-element row, an all-zero row, one 1e30 among
@@ -181,14 +185,19 @@ GMM_ROUTE_CODES = (("bf16 x bf16", 1, 1), ("bf16 x f32", 1, 0),
                    ("f32 x f32", 0, 0))
 GMM_WIDE_LIMIT = 1024 * 512
 #: selective-scan sweep of phase 3, and the reference's tolerance for it
-#: (tests/test_kernels.py test_mamba_scan: 1e-4)
-SCAN_SWEEP = dict(B=(1, 4), S=(1, 7, 128, 1000), di=(64, 8192),
-                  h0=(False, True))
+#: (tests/test_kernels.py test_mamba_scan: 1e-4); S 31, 32 and 33 straddle
+#: the kernel's 32-step staging chunk, di 100 (not a multiple of 4) takes
+#: its 4-byte copies and di 8,196 ends in a partly filled 64-channel block
+SCAN_SWEEP = dict(B=(1, 4), S=(1, 7, 31, 32, 33, 128, 1000),
+                  di=(64, 100, 8192, 8196), h0=(False, True))
 SCAN_DS = 16
 SCAN_TOL = 1e-4
-#: WKV sweep of phase 3 (``state``: from a zero or a carried state)
-WKV_SWEEP = dict(B=(1, 4), S=(1, 7, 64, 1000, 1421), H=(4, 40),
-                 hd=(16, 32, 64), state=(False, True))
+#: WKV sweep of phase 3 (``state``: from a zero or a carried state); S 15,
+#: 16 and 17 straddle the kernel's 16-step staging chunk, and B x H runs
+#: from 4 to 280 pairs, on both sides of the card's 132 SMs: at hd 64 a
+#: pair's columns span 8, 4 (B x H = 160) or 2 (280) blocks
+WKV_SWEEP = dict(B=(1, 4), S=(1, 7, 15, 16, 17, 64, 1000, 1421),
+                 H=(4, 40, 70), hd=(16, 32, 64), state=(False, True))
 #: quantize sweep of phase 3 (every case in f32 and bf16 out), and the two
 #: rows the compression chain quantizes most: qwen3-8b's embedding (151,936
 #: x 4,096) and an MLP weight (4,096 x 12,288), each tensor one row
@@ -610,8 +619,19 @@ def check_rwkv(dev) -> dict:
             expect(st2 is buf and torch.equal(y2, y) and
                    torch.equal(buf, st), what + " in place differs")
         n += 1
-    return {"cases": n, "sweep": WKV_SWEEP, "tol": "1e-4 * max|plain| + "
-            "1e-4", "max_abs_err": worst}
+    # r, k, v, w one element into their storage: rows off 16-byte
+    # alignment take the kernel's 4-byte copies
+    a = wkv_inputs(gen, 2, 33, 4, 64, dev, True)
+    odd = {k: torch.empty(v.numel() + 1, device=dev)[1:].view(v.shape)
+           .copy_(v) if k in ("r", "k", "v", "w") else v
+           for k, v in a.items()}
+    y, st = rwkv6_wkv_cuda(**odd)
+    want_y, want_st = rwkv6_wkv_ref(*(a[k] for k in "rkvwu"), a["state0"])
+    torch.cuda.synchronize()
+    worst = max(worst, wkv_close(y, st, want_y, want_st,
+                                 "rwkv6_wkv unaligned rows"))
+    return {"cases": n + 1, "sweep": WKV_SWEEP, "unaligned_case": True,
+            "tol": "1e-4 * max|plain| + 1e-4", "max_abs_err": worst}
 
 
 # ---------------------------------------------------------- 4. main path ----
@@ -961,6 +981,7 @@ def serve_path(dev, card: Card, phase: str, cfg, requests: int,
     flash_attention_cuda.shapes.clear()
     moe_gmm_cuda.shapes.clear()
     rwkv6_wkv_cuda.shapes.clear()
+    mamba_ssm_cuda.shapes.clear()
     t0 = time.perf_counter()
     reqs = [deps[o].inject(p, max_new=SERVE_MAX_NEW)
             for o, p in zip(owner, prompts)]
@@ -973,6 +994,7 @@ def serve_path(dev, card: Card, phase: str, cfg, requests: int,
     shapes = dict(flash_attention_cuda.shapes)
     gmm_shapes = dict(moe_gmm_cuda.shapes)
     wkv_shapes = dict(rwkv6_wkv_cuda.shapes)
+    scan_shapes = dict(mamba_ssm_cuda.shapes)
     other = vpc_datapath_cuda.launches + chacha20_xor_cuda.launches
     rep = plat.report()
 
@@ -1138,6 +1160,26 @@ def serve_path(dev, card: Card, phase: str, cfg, requests: int,
         record["flash_attention_ms_per_run"] = n_attn * sum(per_group)
         record["flash_attention_share_of_run"] = \
             record["flash_attention_ms_per_run"] / (wall * 1e3)
+    # the scans' device ms a run: launches at each (B, S) of the run times
+    # the raw-launch ms there (prefill from a zero state, decode steps from
+    # a carried one, as the path launches them; a decode step's raw launch
+    # is paced by the host, ~7 us, more than its device time)
+    gen = torch.Generator(device=dev).manual_seed(SERVE_SEED)
+    per_run = {
+        "rwkv6_wkv": (wkv_shapes, lambda b, s: raw_wkv(wkv_inputs(
+            gen, b, s, cfg.rwkv_heads, cfg.rwkv_head_size, dev, s == 1))),
+        "mamba_ssm": (scan_shapes, lambda b, s: raw_scan(scan_inputs(
+            gen, b, s, cfg.mamba_expand * cfg.d_model, dev, s == 1)))}
+    for name, (by_shape, raw) in per_run.items():
+        if by_shape:
+            ms = {(b, s): cuda_ms(raw(b, s), 50 if s == 1 else 10)
+                  for b, s in by_shape}
+            record[f"{name}_ms_per_run"] = sum(n * ms[bs_s] for bs_s, n
+                                               in by_shape.items())
+            record[f"{name}_share_of_run"] = \
+                record[f"{name}_ms_per_run"] / (wall * 1e3)
+            record[f"{name}_ms_by_shape"] = [[b, s, n, ms[b, s]] for (b, s), n
+                                             in sorted(by_shape.items())]
     if gmm_shapes:           # the most frequent launch: a decode step's
         typical["moe_gmm_decode_rows"] = max(gmm_shapes,
                                              key=gmm_shapes.get)[1]

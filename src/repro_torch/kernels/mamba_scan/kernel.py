@@ -5,10 +5,11 @@ kernel ``kernels/mamba_scan/kernel.py::mamba_ssm`` (body ``_mamba_kernel``)
 and extends it as the model's ``ssm_scan`` needs: it starts from a carried
 state ``h0`` and returns the final state beside y, so a prefill leaves the
 state in the cache and each decode step is a scan of one step from it.
-One thread owns one (batch, channel) and its d_state states in registers;
-B_t and C_t are staged per chunk of steps in shared memory.  All in f32,
-``expf`` (no fast math).  At the serving shapes it is bound about evenly
-by its exponentials and its bytes.
+Four lanes own one (batch, channel), 4 of its 16 states each in
+registers, and sum y over them with shuffles, 4 steps at a time; chunks of
+x, dt, B and C are kept in flight with ``cp.async``.  All in f32, the
+exponentials as ``exp2f`` of a prescaled A (no fast math).  At the serving
+shapes it is bound about evenly by its exponentials and its bytes.
 
 :func:`mamba_ssm_cuda` checks its inputs and raises on anything the kernel
 does not take; it never falls back to the plain version.
@@ -68,7 +69,8 @@ def mamba_ssm_cuda(x, dt, Bmat, Cmat, A, D, h0=None, h_out=None):
     and h_out: (B, di, 16) or None; all f32, contiguous, on one CUDA device.
     Returns (y (B, S, di), h_final): h_final is ``h_out`` when given (it may
     be ``h0`` itself), else a new tensor.  Counts its launches in
-    ``mamba_ssm_cuda.launches``."""
+    ``mamba_ssm_cuda.launches``, and per (B, S) in
+    ``mamba_ssm_cuda.shapes``."""
     _check(x, dt, Bmat, Cmat, A, D, h0, h_out)
     B, S, di = x.shape
     ds = Bmat.shape[-1]
@@ -87,7 +89,10 @@ def mamba_ssm_cuda(x, dt, Bmat, Cmat, A, D, h0=None, h_out=None):
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "mamba_ssm")
     mamba_ssm_cuda.launches += 1
+    shapes = mamba_ssm_cuda.shapes
+    shapes[B, S] = shapes.get((B, S), 0) + 1
     return y, h_out
 
 
 mamba_ssm_cuda.launches = 0
+mamba_ssm_cuda.shapes = {}

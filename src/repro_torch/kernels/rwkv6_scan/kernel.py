@@ -5,10 +5,12 @@ kernel ``kernels/rwkv6_scan/kernel.py::rwkv6_wkv`` (body ``_wkv_kernel``)
 computes, extended as serving needs it: it starts from a carried state
 (``state0``, zero when none is given), writes the final state (which may be
 ``state0`` itself, so the decode updates its cache in place), takes the
-model's (B, S, H, hd) layout and any S.  One block per (batch, head) with
-hd threads; thread j keeps column j of the (hd, hd) state in registers, and
-r_t, k_t, v_t, w_t are staged per chunk of steps in shared memory.  All in
-f32, no fast math.
+model's (B, S, H, hd) layout and any S.  A (batch, head) pair's columns
+are split over 2 to 8 blocks; the 8 (at hd 64) threads of a column each
+keep 8 of its rows of the (hd, hd) state in registers and sum y over them
+with shuffles, 8 steps at a time.  A staging warp keeps chunks of r, k, v,
+w in flight with ``cp.async`` and computes the bonus term once a step.
+All in f32, no fast math.
 
 :func:`rwkv6_wkv_cuda` checks its inputs and raises on anything the kernel
 does not take; it never falls back to the plain version.

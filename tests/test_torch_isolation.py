@@ -1,5 +1,6 @@
-"""The port stands alone: ``src/repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor the JAX package ``repro``."""
+"""The port stands alone: ``src/repro_torch``, ``chip_smoke.py`` and the
+port's measurement tools import neither JAX nor the JAX package
+``repro``."""
 from __future__ import annotations
 
 import ast
@@ -13,7 +14,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
+    ROOT / "tools" / name for name in ("kernel_ab.py", "serve_ab.py")]
 
 
 def _module(path: Path) -> str:

@@ -52,8 +52,13 @@ def torch_args(a: dict) -> dict:
 # ============================================================= mamba_ssm ====
 @pytest.mark.parametrize("B,S,di,ds,chunk,bdi", [
     (2, 64, 128, 16, 32, 128), (1, 128, 256, 8, 64, 128),
-    (2, 96, 64, 16, 32, 64), (3, 1, 128, 16, 1, 64)])
+    (2, 96, 64, 16, 32, 64), (3, 1, 128, 16, 1, 64),
+    (1, 31, 100, 16, 31, 100), (2, 32, 100, 16, 16, 50),
+    (1, 33, 68, 16, 11, 68), (1, 32, 8196, 16, 32, 4098)])
 def test_selective_scan_plain_matches_pallas(B, S, di, ds, chunk, bdi):
+    """The reference's shapes, then S around the CUDA kernel's 32-step
+    chunk and di that is not a multiple of 4 or of its 64-channel blocks
+    (chunks and channel blocks that divide them)."""
     a = scan_inputs(B, S, di, ds, seed=B * S + di)
     args = [jnp.asarray(a[k]) for k in ("x", "dt", "Bmat", "Cmat", "A", "D")]
     y, h = selective_scan(**torch_args(a))
@@ -65,7 +70,9 @@ def test_selective_scan_plain_matches_pallas(B, S, di, ds, chunk, bdi):
                                **TOL)
 
 
-@pytest.mark.parametrize("B,S,di", [(2, 17, 64, ), (1, 1, 128), (3, 40, 32)])
+@pytest.mark.parametrize("B,S,di", [(2, 17, 64, ), (1, 1, 128), (3, 40, 32),
+                                    (1, 31, 100), (2, 32, 68),
+                                    (1, 33, 8196)])
 def test_selective_scan_carried_state_matches_model_scan(B, S, di):
     """A non-zero h0: y and the final state against the JAX model's
     ``ssm_scan`` (the function the kernel serves)."""
@@ -83,6 +90,21 @@ def test_selective_scan_carried_state_matches_model_scan(B, S, di):
     assert h2 is state
     torch.testing.assert_close(y2, y, rtol=0, atol=0)
     torch.testing.assert_close(state, h, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("S1,S2", [(32, 1), (32, 31), (64, 33)])
+def test_selective_scan_split_equals_whole(S1, S2):
+    """A scan of S1 steps, then one of S2 from its final state, equals one
+    scan of S1 + S2 (a prefill, then decode steps), split on the CUDA
+    kernel's 32-step chunk boundaries."""
+    a = torch_args(scan_inputs(2, S1 + S2, 100, 16, seed=S1 + S2, h0=True))
+    y, h = mamba_ssm_ref(**a)
+    head = {k: a[k][:, :S1] for k in ("x", "dt", "Bmat", "Cmat")}
+    tail = {k: a[k][:, S1:] for k in ("x", "dt", "Bmat", "Cmat")}
+    y1, h1 = mamba_ssm_ref(**head, A=a["A"], D=a["D"], h0=a["h0"])
+    y2, h2 = mamba_ssm_ref(**tail, A=a["A"], D=a["D"], h0=h1)
+    torch.testing.assert_close(torch.cat([y1, y2], 1), y, **TOL)
+    torch.testing.assert_close(h2, h, **TOL)
 
 
 def test_mamba_ssm_wrapper_raises_off_the_card():
@@ -167,8 +189,13 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("h0", [False, True])
-@pytest.mark.parametrize("B,S,di", [(1, 1, 64), (4, 7, 8192), (2, 300, 100)])
+@pytest.mark.parametrize("B,S,di", [(1, 1, 64), (4, 7, 8192), (2, 300, 100),
+                                    (1, 31, 100), (2, 32, 8196),
+                                    (1, 33, 8192)])
 def test_mamba_ssm_cuda_matches_plain(cuda_device, B, S, di, h0):
+    """y and the final state within the reference's 1e-4, S around the
+    kernel's 32-step chunk, di that takes its 4-byte copies (100) and a
+    partly filled last block (8,196); and once more in place."""
     t = {k: None if v is None else v.to(cuda_device)
          for k, v in torch_args(scan_inputs(B, S, di, 16, seed=S,
                                             h0=h0)).items()}
@@ -178,3 +205,7 @@ def test_mamba_ssm_cuda_matches_plain(cuda_device, B, S, di, h0):
     want_y, want_h = mamba_ssm_ref(**t)
     torch.testing.assert_close(y, want_y, **TOL)
     torch.testing.assert_close(h, want_h, **TOL)
+    if h0:
+        state = t["h0"].clone()
+        y2, h2 = selective_scan(**{**t, "h0": state}, h_out=state)
+        assert h2 is state and torch.equal(y2, y) and torch.equal(state, h)

@@ -62,11 +62,20 @@ def bhsd(a):
 
 
 # ============================================================ rwkv6_wkv ====
+#: the CUDA kernel stages 16 steps at a time: S one short of, at and one
+#: past a chunk, at each head size it is built for
+EDGE_S = (15, 16, 17)
+
+
 @pytest.mark.parametrize("B,H,S,hd,chunk", [
-    (2, 2, 64, 16, 16), (1, 4, 128, 32, 64), (2, 3, 96, 64, 32)])
+    (2, 2, 64, 16, 16), (1, 4, 128, 32, 64), (2, 3, 96, 64, 32),
+    (2, 3, 15, 16, 5), (1, 2, 16, 32, 8), (2, 2, 17, 64, 17),
+    (1, 4, 15, 64, 15), (2, 2, 16, 16, 16), (1, 3, 17, 32, 17)])
 def test_wkv_plain_matches_pallas_and_oracle(B, H, S, hd, chunk):
-    """The reference test's three shapes, with the layout permuted between
-    the port's (B, S, H, hd) and the Pallas kernel's (B, H, S, hd)."""
+    """The reference test's three shapes, then S around the CUDA kernel's
+    16-step chunk at hd 16, 32 and 64 (chunks that divide S), with the
+    layout permuted between the port's (B, S, H, hd) and the Pallas
+    kernel's (B, H, S, hd)."""
     a = wkv_inputs(B, S, H, hd, seed=B * H * S)
     y, st = wkv(**torch_args(a))
     assert y.dtype == torch.float32 and y.shape == (B, S, H, hd)
@@ -81,7 +90,8 @@ def test_wkv_plain_matches_pallas_and_oracle(B, H, S, hd, chunk):
 
 @pytest.mark.parametrize("B,S,H,hd,chunk", [
     (2, 1, 2, 16, 8), (1, 13, 3, 32, 8), (2, 48, 2, 64, 16),
-    (3, 70, 1, 16, 64)])
+    (3, 70, 1, 16, 64), (1, 15, 2, 32, 5), (2, 16, 3, 64, 16),
+    (1, 17, 2, 16, 8)])
 def test_wkv_carried_state_matches_model_scan(B, S, H, hd, chunk):
     """A non-zero carried state: y and the final state against the JAX
     model's ``wkv_scan`` (the function the kernel serves), for S = 1 and S
@@ -102,10 +112,12 @@ def test_wkv_carried_state_matches_model_scan(B, S, H, hd, chunk):
     torch.testing.assert_close(state, st, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("S1,S2", [(5, 1), (17, 9), (1, 1)])
+@pytest.mark.parametrize("S1,S2", [(5, 1), (17, 9), (1, 1), (16, 1),
+                                   (16, 17), (32, 15)])
 def test_wkv_split_scan_equals_whole(S1, S2):
     """A scan of S1 steps, then one of S2 from its final state, equals one
-    scan of S1 + S2 (what a prefill followed by decode steps relies on)."""
+    scan of S1 + S2 (what a prefill followed by decode steps relies on),
+    also split on the CUDA kernel's 16-step chunk boundaries."""
     a = torch_args(wkv_inputs(2, S1 + S2, 3, 16, seed=S1, state=True))
     y, st = rwkv6_wkv_ref(**a)
     head = {k: a[k][:, :S1] for k in ("r", "k", "v", "w")}
@@ -273,11 +285,15 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("state", [False, True])
-@pytest.mark.parametrize("B,S,H,hd", [(1, 1, 4, 16), (4, 7, 40, 64),
-                                      (2, 300, 3, 32)])
+@pytest.mark.parametrize("B,S,H,hd", [
+    (1, 1, 4, 16), (4, 7, 40, 64), (2, 300, 3, 32),
+    *((1, s, 4, hd) for s, hd in zip(EDGE_S, (64, 16, 32))),
+    (4, 17, 40, 32), (2, 33, 70, 64), (1, 16, 40, 64)])
 def test_rwkv6_wkv_cuda_matches_plain(cuda_device, B, S, H, hd, state):
     """y and the final state within 1e-4 of the largest plain value plus
-    1e-4, and once more in place (the state passed as the output too)."""
+    1e-4, and once more in place (the state passed as the output too); S
+    around the kernel's 16-step chunk, B x H = 4 to 160 pairs (their
+    columns over 8 down to 2 blocks)."""
     t = {k: None if v is None else v.to(cuda_device)
          for k, v in torch_args(wkv_inputs(B, S, H, hd, seed=S,
                                            state=state)).items()}

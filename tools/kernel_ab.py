@@ -1,25 +1,31 @@
 #!/usr/bin/env python3
-"""Before and after on one card: the port's ``moe_gmm`` and
-``flash_attention`` CUDA kernels against an earlier version of their
-sources, at the shapes the serving and training paths give them.
+"""Before and after on one card: the port's ``moe_gmm``,
+``flash_attention``, ``rwkv6_wkv`` and ``mamba_ssm`` CUDA kernels against
+an earlier version of their sources, at the shapes the serving and
+training paths give them.
 
     mkdir -p build/ab_old
-    git show <commit>:src/repro_torch/csrc/moe_gmm.cu > build/ab_old/moe_gmm.cu
-    git show <commit>:src/repro_torch/csrc/flash_attention.cu \\
-        > build/ab_old/flash_attention.cu
+    for f in rwkv6_scan mamba_scan; do
+        git show <commit>:src/repro_torch/csrc/$f.cu > build/ab_old/$f.cu
+    done
     python3 tools/kernel_ab.py --old build/ab_old
 
-Builds both versions of each source with the port's ``nvcc`` flags into
-``build/kernel_ab/`` (one ``nvcc`` per library, all started together),
-holds both against the plain PyTorch versions (the reference's tolerances,
-``chip_smoke.close``), and times raw launches of the C entry points with
-CUDA events in the order old, new, new, old.  Beside them: the bound
-(``chip_smoke.Card``), and the PyTorch calls that compute the same
-function (``torch.bmm`` on bf16 weights; ``w.to(torch.bfloat16)`` then
-``torch.bmm``, two calls, with the cast inside the timing;
-``scaled_dot_product_attention``).  Prints the ``nvidia-smi`` name and power limit, one JSON line per shape,
-and writes them all to ``chiprun_out/kernel_ab.json``.  Needs a CUDA
-device; imports nothing of JAX.
+The directory may hold any of ``moe_gmm.cu``, ``flash_attention.cu``,
+``rwkv6_scan.cu`` and ``mamba_scan.cu``; the kernels of the sources it
+holds are compared.  Builds both versions of each with the port's ``nvcc``
+flags into ``build/kernel_ab/`` (one ``nvcc`` per library, all started
+together), holds both against the plain PyTorch versions (the reference's
+tolerances: ``chip_smoke.close``, ``chip_smoke.wkv_close``), and times raw
+launches of the C entry points with CUDA events in the order old, new,
+new, old.  Beside them: the bound (``chip_smoke.Card``); the PyTorch calls
+that compute the same function (``torch.bmm`` on bf16 weights;
+``w.to(torch.bfloat16)`` then ``torch.bmm``, two calls, with the cast
+inside the timing; ``scaled_dot_product_attention``); and at the scans'
+decode shapes an empty kernel of each version's launch shape, timed the
+same way, the floor of a raw launch paced by the host.  Prints the
+``nvidia-smi`` name and power limit, one JSON line per shape, and writes
+them all to ``chiprun_out/kernel_ab.json``.  Needs a CUDA device; imports
+nothing of JAX.
 """
 from __future__ import annotations
 
@@ -37,11 +43,13 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import chip_smoke as cs  # noqa: E402
 
-SOURCES = ("moe_gmm", "flash_attention")
+SOURCES = ("moe_gmm", "flash_attention", "rwkv6_scan", "mamba_scan")
 ENTRY = {"moe_gmm": "moe_gmm_launch",
-         "flash_attention": "flash_attention_launch"}
-#: launches a timing averages over
+         "flash_attention": "flash_attention_launch",
+         "rwkv6_scan": "rwkv6_wkv_launch", "mamba_scan": "mamba_ssm_launch"}
+#: launches a timing averages over, and at the scans' one-step shapes
 REPS = 10
+DECODE_REPS = 100
 #: (name, E, M, d, f, w dtype): serve_hybrid's expert launches (Jamba at
 #: full width: 16 experts, d 4,096, f 14,336; 448 capacity rows at prefill,
 #: 4 at a decode step) with the model's f32 weights, and the bf16-weight
@@ -59,22 +67,47 @@ FA_SHAPES = (("serve", 2, 1237, 32, 8, 128, False),
              ("train_lse", 1, 4096, 32, 8, 128, True),
              ("train", 1, 4096, 32, 8, 128, False),
              ("serve_hd64", 2, 1237, 16, 8, 64, False))
+#: (name, B, S, H, hd, carried state): serve_rwkv's longest prefill group
+#: (rwkv6-3b, 40 heads of 64) from a zero state, and a decode step of that
+#: batch from a carried state
+WKV_SHAPES = (("prefill", 2, 1421, 40, 64, False),
+              ("decode", 2, 1, 40, 64, True))
+#: (name, B, S, di, carried state): serve_hybrid's (Jamba at full width,
+#: di 8,192, d_state 16), likewise
+SCAN_SHAPES = (("prefill", 2, 1421, 8192, False),
+               ("decode", 2, 1, 8192, True))
+#: an empty kernel, for the floor of a raw launch at a given launch shape
+EMPTY_CU = r"""
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int empty_launch(unsigned gx, unsigned gy, unsigned threads,
+                            void* stream) {
+  empty_kernel<<<dim3(gx, gy), threads, 0,
+                 static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+"""
 
 
-def build(old_dir: Path) -> dict:
-    """Compile old and new versions of both sources; return the loaded
-    libraries {(version, source): CDLL} and ptxas's register lines."""
+def build(old_dir: Path, sources: list) -> dict:
+    """Compile old and new versions of ``sources`` and the empty kernel;
+    return the loaded libraries {(version, source): CDLL}, the empty
+    kernel's launcher and ptxas's register lines."""
     from repro_torch.kernels import _build
     nvcc = _build._nvcc()
     out_dir = ROOT / "build" / "kernel_ab"
     out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
+    (out_dir / "empty.cu").write_text(EMPTY_CU)
+    jobs = {("empty", "empty"): (out_dir / "empty.cu",
+                                 out_dir / "libempty.so")}
     for version, src_dir in (("old", old_dir), ("new", _build.CSRC)):
-        for name in SOURCES:
-            lib = out_dir / f"lib{name}_{version}.so"
-            procs[version, name] = (lib, subprocess.Popen(
-                _build.command(nvcc, src_dir / f"{name}.cu", lib),
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for name in sources:
+            jobs[version, name] = (src_dir / f"{name}.cu",
+                                   out_dir / f"lib{name}_{version}.so")
+    procs = {key: (lib, subprocess.Popen(
+        _build.command(nvcc, src, lib), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True))
+        for key, (src, lib) in jobs.items()}
     libs, ptxas = {}, {}
     for key, (lib, proc) in procs.items():
         log, _ = proc.communicate()
@@ -83,8 +116,13 @@ def build(old_dir: Path) -> dict:
         ptxas["/".join(key)] = [ln.strip() for ln in log.splitlines()
                                 if "registers" in ln or "spill" in ln]
         cdll = ctypes.CDLL(str(lib))
-        fn = getattr(cdll, ENTRY[key[1]])
-        fn.argtypes, fn.restype = _build.SIGNATURES[key[1]][ENTRY[key[1]]]
+        if key[0] == "empty":
+            cdll.empty_launch.argtypes = [ctypes.c_uint, ctypes.c_uint,
+                                          ctypes.c_uint, ctypes.c_void_p]
+            cdll.empty_launch.restype = ctypes.c_int
+        else:
+            fn = getattr(cdll, ENTRY[key[1]])
+            fn.argtypes, fn.restype = _build.SIGNATURES[key[1]][ENTRY[key[1]]]
         libs[key] = cdll
     return {"libs": libs, "ptxas": ptxas}
 
@@ -198,13 +236,122 @@ def fa_case(card, libs, name, B, S, H, Kv, hd, lse, reps) -> dict:
                        "enable_gqa=True) on (B, H, S, hd) copies"}
 
 
+def empty_launch(libs, grid: tuple) -> object:
+    """A raw launch of the empty kernel at ``grid`` = (x, y, threads)."""
+    import torch
+    return launcher(libs["empty", "empty"], "empty_launch",
+                    [*grid, torch.cuda.current_stream().cuda_stream], None)
+
+
+def wkv_grid(version: str, B: int, H: int, hd: int, sms: int) -> tuple:
+    """(grid x, grid y, threads) of a WKV launch: the first design ("old"),
+    one block of hd threads a (batch, head) pair; this one, a pair's
+    columns over 2, 4 or 8 blocks of compute warps and a staging warp (the
+    rule of ``rwkv6_scan.cu``'s ``launch``)."""
+    if version == "old":
+        return B * H, 1, hd
+    slots = 32 // (hd // (8 if hd == 64 else 4))
+    parts = 2
+    while parts < 8 and B * H * parts < 4 * sms and hd // (2 * parts) >= slots:
+        parts *= 2
+    return B * H, parts, hd // parts // slots * 32 + 32
+
+
+def scan_grid(version: str, B: int, di: int) -> tuple:
+    """(grid x, grid y, threads) of a scan launch: 64 channels a block,
+    one thread a channel (the first design, "old") or four (this one)."""
+    return -(-di // 64), B, 64 if version == "old" else 256
+
+
+def wkv_launch(cdll, a: dict):
+    import torch
+    B, S, H, hd = a["r"].shape
+    y = torch.empty_like(a["r"])
+    st = torch.empty((B, H, hd, hd), dtype=torch.float32, device="cuda")
+    s0 = a["state0"]
+    return launcher(cdll, "rwkv6_wkv_launch", [
+        a["r"].data_ptr(), a["k"].data_ptr(), a["v"].data_ptr(),
+        a["w"].data_ptr(), a["u"].data_ptr(),
+        None if s0 is None else s0.data_ptr(), y.data_ptr(), st.data_ptr(),
+        B, S, H, hd, torch.cuda.current_stream().cuda_stream], (y, st))
+
+
+def scan_launch(cdll, a: dict):
+    import torch
+    B, S, di = a["x"].shape
+    y = torch.empty_like(a["x"])
+    h = torch.empty((B, di, cs.SCAN_DS), dtype=torch.float32, device="cuda")
+    h0 = a["h0"]
+    return launcher(cdll, "mamba_ssm_launch", [
+        a["x"].data_ptr(), a["dt"].data_ptr(), a["Bmat"].data_ptr(),
+        a["Cmat"].data_ptr(), a["A"].data_ptr(), a["D"].data_ptr(),
+        None if h0 is None else h0.data_ptr(), y.data_ptr(), h.data_ptr(),
+        B, S, di, cs.SCAN_DS, torch.cuda.current_stream().cuda_stream],
+        (y, h))
+
+
+def scan_cases(card, libs, kind: str, shape: tuple) -> dict:
+    """One shape of ``rwkv6_wkv`` (``kind`` "wkv") or ``mamba_ssm``
+    ("scan"): both versions against the plain version, timed in turns;
+    at S = 1 also the empty kernel at each version's launch shape."""
+    import torch
+
+    from repro_torch.kernels.mamba_scan import mamba_ssm_ref
+    from repro_torch.kernels.rwkv6_scan import rwkv6_wkv_ref
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    if kind == "wkv":
+        name, B, S, H, hd, state = shape
+        a = cs.wkv_inputs(gen, B, S, H, hd, "cuda", state)
+        want = rwkv6_wkv_ref(*(a[k] for k in "rkvwu"), a["state0"])
+        fns = {v: wkv_launch(libs[v, "rwkv6_scan"], a)
+               for v in ("old", "new")}
+        held = lambda fn, v: cs.wkv_close(                    # noqa: E731
+            *fn.keep, *want, f"rwkv6_wkv {name} ({v})")
+        bound, by, nbytes, ops = cs.wkv_bound(card, B, S, H, hd, state)
+        grids = {v: wkv_grid(v, B, H, hd, card.sms) for v in fns}
+        rec = {"kernel": "rwkv6_wkv", "shape": name, "B": B, "S": S,
+               "H": H, "hd": hd, "state0": state, "flops": ops}
+    else:
+        name, B, S, di, state = shape
+        a = cs.scan_inputs(gen, B, S, di, "cuda", state)
+        want = mamba_ssm_ref(**a)
+        fns = {v: scan_launch(libs[v, "mamba_scan"], a)
+               for v in ("old", "new")}
+        held = lambda fn, v: max(                             # noqa: E731
+            cs.close(got, w, f"mamba_ssm {name} ({v})", cs.SCAN_TOL)
+            for got, w in zip(fn.keep, want))
+        bound, by, nbytes, steps = cs.scan_bound(card, B, S, di, state)
+        grids = {v: scan_grid(v, B, di) for v in fns}
+        rec = {"kernel": "mamba_ssm", "shape": name, "B": B, "S": S,
+               "di": di, "d_state": cs.SCAN_DS, "h0": state,
+               "exps": steps * cs.SCAN_DS}
+    errs = {}
+    for v, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        errs[v] = held(fn, v)
+    reps = DECODE_REPS if S == 1 else REPS
+    rec.update({"max_abs_err": errs, "ms": turns(fns, reps),
+                "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+                "launch_shape": grids, "library_ms": None,
+                "library": "none: no single PyTorch call"})
+    if S == 1:
+        rec["empty_kernel_ms"] = turns(
+            {v: empty_launch(libs, g) for v, g in grids.items()}, reps)
+    return rec
+
+
 def main() -> int:
     import torch
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--old", type=Path, required=True,
-                   help="directory holding the earlier moe_gmm.cu and "
-                        "flash_attention.cu")
+                   help="directory holding earlier versions of any of "
+                        + ", ".join(f"{s}.cu" for s in SOURCES))
     a = p.parse_args()
+    sources = [s for s in SOURCES if (a.old / f"{s}.cu").exists()]
+    if not sources:
+        print(f"kernel_ab: {a.old} holds none of {SOURCES}", file=sys.stderr)
+        return 1
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 1
@@ -218,14 +365,25 @@ def main() -> int:
         cs.emit(rec)
 
     t0 = time.perf_counter()
-    built = build(a.old)
+    built = build(a.old, sources)
+    libs = built["libs"]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "ptxas": built["ptxas"]})
-    for shape in FA_SHAPES:
-        emit(fa_case(card, built["libs"], *shape, REPS))
-        cs.free_device()
-    for shape in GMM_SHAPES:
-        emit(gmm_case(card, built["libs"], *shape, REPS))
+          "sources": sources, "ptxas": built["ptxas"]})
+    cases = []
+    if "flash_attention" in sources:
+        cases += [lambda s=s: fa_case(card, libs, *s, REPS)
+                  for s in FA_SHAPES]
+    if "moe_gmm" in sources:
+        cases += [lambda s=s: gmm_case(card, libs, *s, REPS)
+                  for s in GMM_SHAPES]
+    if "rwkv6_scan" in sources:
+        cases += [lambda s=s: scan_cases(card, libs, "wkv", s)
+                  for s in WKV_SHAPES]
+    if "mamba_scan" in sources:
+        cases += [lambda s=s: scan_cases(card, libs, "scan", s)
+                  for s in SCAN_SHAPES]
+    for case in cases:
+        emit(case())
         cs.free_device()
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
