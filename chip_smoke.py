@@ -13,7 +13,10 @@ prints one JSON line per phase:
   1. card      — device name, and the ``nvidia-smi`` name / power limit line;
   2. build     — seconds the build took, ptxas register / spill counts;
   3. kernels   — ``chacha20_xor`` and ``vpc_datapath`` against their plain
-                 versions at many shapes (``torch.equal``: bit-exact);
+                 versions at many shapes (``torch.equal``: bit-exact), the
+                 datapath also on N around its 256- and 512-packet tiles,
+                 R = 1,025 and six rule tables at its packed key's edges
+                 (``serving.vpc.make_edge_case``);
   4. main path — ``Platform(ComputeBackend())``, two tenants (weights 2:1)
                  each deploying firewall >> nat >> chacha20 with 300 rules,
                  ~1.0 M packets per run; checks outputs against the plain
@@ -71,9 +74,11 @@ prints one JSON line per phase:
                  step (91 quantize, 91 dequantize, 16 flash attention),
                  finite losses and gradient norms, the median step seconds
                  of steps 2-5, tokens/s, model FLOP and MFU, the
-                 compression's device ms and share, peak memory; and a
-                 small crash/restart on the card (head_dim 64,
-                 ``compress="none"``);
+                 compression's device ms and share, peak memory; a small
+                 crash/restart on the card (head_dim 64,
+                 ``compress="none"``); and the quantize kernel's device ms
+                 a step (its launches at each (R, D) times the raw-launch
+                 ms there) and share;
   8. the ``{"kernels": [...]}`` line: per kernel (all eight) its launches
      on its path, time, plain time, bound and, where one PyTorch call
      computes the same function, that call's time;
@@ -91,9 +96,13 @@ WKV scan over B in {1, 4}, S in {1, 7, 15, 16, 17, 64, 1000, 1421}, H in
 the plain version's largest value plus 1e-4), 288 cases and one with rows off
 16-byte alignment; both scans again in place, bit-equal to out of place; the
 flash kernel's LSE beside its output; and the quantize pair bit for bit
-over R in {1, 3, 256}, D in {1, 127, 4,097, 1,048,576}, f32 and bf16 in
-and out, one 622,329,856-element row, an all-zero row, one 1e30 among
-1e-30s and a view at an odd element offset.  With
+(NaN equal to NaN) over R in {1, 3, 256}, D in {1, 127, 4,097,
+1,048,576}, f32 and bf16 in and out, one 622,329,856-element row, an
+all-zero row, one 1e30 among 1e-30s, rows of randn scaled from 1e-40 to
+1e38 (denormals, a scale beyond the kernel's fast reciprocal, infs),
+views at an odd element offset, and the quantize kernel's edges: D on
+each side of one block's shared-memory hold and of the whole grid's,
+more rows than resident blocks, 70,000 rows and D = 0.  With
 ``--profile`` the main-path and serve records also carry a
 ``torch.profiler`` breakdown of one more run (device busy time against wall
 time; full tables in ``chiprun_out/chip_smoke_profile*.txt``), the train
@@ -130,8 +139,13 @@ INT_OPS_PER_SM_CLOCK = 128
 #: integer operations one ChaCha20 block needs: 80 quarter rounds of 12
 #: (4 add, 4 xor, 4 rotate), the 16-word feed-forward add and the 16-word XOR
 CHACHA_OPS_PER_BLOCK = 80 * 12 + 16 + 16
-#: per rule per packet in the firewall: and, compare, compare, two selects
-FW_OPS_PER_RULE = 5
+#: per rule per packet in the firewall: one three-input logic op
+#: t = (dst & mask) ^ prefix, a compare t == 0 and a predicated unsigned
+#: max into the packet's best key, once each rule is packed as {prefix,
+#: mask, key} with its mask length, index and verdict in the key (as
+#: ``csrc/vpc_datapath.cu`` stages it; the first count, 5, kept the length
+#: and the verdict apart: and, two compares, two selects)
+FW_OPS_PER_RULE = 3
 #: NAT flow hash and port: 2 multiplies, 1 shift left, 4 xors, shift, and
 NAT_OPS = 9
 #: the chip-smoke workload (module level so a CPU rehearsal can shrink it)
@@ -156,6 +170,13 @@ SERVE_PROMPT = (256, 1536)          # prompt lengths, inclusive
 SERVE_MAX_NEW = 16
 SERVE_MAX_LEN = 2048
 SERVE_SEED = 8
+#: datapath sweep of phase 3: N 255, 257, 511, 512, 513, 2,049 and
+#: (1 << 20) + 3 around the kernel's 256-packet tiles (two packets a
+#: thread), R 1,025 one rule into the second 1,024-rule chunk; and the N of
+#: each edge-case rule table (``serving.vpc.make_edge_case``)
+VPC_SWEEP = dict(N=(1, 255, 257, 511, 512, 513, 2049, (1 << 20) + 3),
+                 R=(1, 32, 300, 1025, 5000))
+VPC_EDGE_N = (1, 513, 4099)
 #: flash-attention sweep of phase 3, and the reference's tolerances
 #: (tests/test_kernels.py: assert_allclose atol = rtol)
 #: (S 63, 65 and 129 straddle the bf16 body's 64-key tiles and, at G 4 and
@@ -205,6 +226,14 @@ QUANT_SWEEP = dict(R=(1, 3, 256), D=(1, 127, 4097, 1 << 20),
                    x=("float32", "bfloat16"))
 EMBED_ELEMENTS = 151936 * 4096
 MLP_ELEMENTS = 4096 * 12288
+#: the rows the kernels line times: those two and the attention
+#: projections (q and o 4,096 x 4,096; k and v 4,096 x 1,024)
+QUANT_ROWS = {"embedding": EMBED_ELEMENTS, "mlp": MLP_ELEMENTS,
+              "attn_qo": 4096 * 4096, "attn_kv": 4096 * 1024}
+#: scales of the magnitude sweep: denormal, tiny, moderate, large, a scale
+#: above the kernel's fast reciprocal (x / s itself) and one near f32's
+#: largest, where some of randn's draws overflow to inf (a scale of inf)
+QUANT_MAGNITUDES = (1e-40, 1e-30, 1e-3, 1e20, 1e35, 1e38)
 #: the train phase: qwen3-8b at full width cut to 8 layers (five f32 copies
 #: of its 2.79 B parameters, 55.8 GB, fit the card; all 36 layers would
 #: need 164 GB), batch 1 x 4,096 tokens (the reference's train_4k
@@ -385,6 +414,19 @@ def vpc_inputs(rng, n, r, dev):
                 .to(torch.uint32).to(dev), salt=0x9e3779b9)
 
 
+def same_values(a, b) -> bool:
+    """``torch.equal`` with a NaN equal to a NaN in the same place: a row
+    holding an inf or a NaN has a NaN or inf scale, and its dequantized
+    values are NaN (0 x inf), in the kernel and the plain version alike."""
+    import torch
+    nan_a = a.isnan() if a.is_floating_point() else torch.zeros_like(
+        a, dtype=torch.bool)
+    nan_b = b.isnan() if b.is_floating_point() else torch.zeros_like(
+        b, dtype=torch.bool)
+    return a.dtype == b.dtype and torch.equal(nan_a, nan_b) and torch.equal(
+        a.masked_fill(nan_a, 0), b.masked_fill(nan_b, 0))
+
+
 def same_triple(a, b) -> bool:
     import torch
     return all(torch.equal(x, y) for x, y in zip(a, b))
@@ -397,10 +439,11 @@ def check_vpc(dev) -> list:
     from repro_torch.kernels.vpc_datapath.kernel import (vpc_datapath_cuda,
                                                          vpc_datapath_plain)
     from repro_torch.kernels.vpc_datapath.ops import rule_table
+    from repro_torch.serving.vpc import EDGE_CASES, make_edge_case
     cases = []
     rng = np.random.default_rng(12)
-    for n in (1, 255, 257, (1 << 20) + 3):
-        for r in (1, 32, 300, 5000):
+    for n in VPC_SWEEP["N"]:
+        for r in VPC_SWEEP["R"]:
             args = vpc_inputs(rng, n, r, dev)
             for ctr_kind in ("default", "explicit"):
                 if ctr_kind == "explicit":
@@ -411,6 +454,19 @@ def check_vpc(dev) -> list:
                        f"vpc_datapath N={n} R={r} ctr={ctr_kind} differs "
                        "from plain")
                 cases.append([n, r, ctr_kind])
+    # the packed key's edges: a /0 deny last, /32 rules, equal lengths at
+    # index 0 and R - 1, all-deny and all-allow tables, the second chunk
+    for kind in EDGE_CASES:
+        for n in VPC_EDGE_N:
+            h, p, rules = make_edge_case(kind, n, seed=n, device=dev)
+            args = vpc_inputs(rng, n, 1, dev)
+            args.update(headers=h, payload=p, rule_table=rule_table(rules,
+                                                                    dev))
+            got = vpc_datapath_cuda(**args)
+            torch.cuda.synchronize()
+            expect(same_triple(got, vpc_datapath_plain(**args)),
+                   f"vpc_datapath {kind} N={n} differs from plain")
+            cases.append([kind, n, int(got[0].sum())])
     # overlapping prefixes: /16 deny beats /8 allow; equal /16s: first wins
     t = lambda v: torch.tensor(v, dtype=torch.int64).to(torch.uint32).to(dev)
     rules = (t([0x0A000000, 0x0A010000, 0x0A010000]),
@@ -837,6 +893,18 @@ def bucket_args(rng, n, table, ch, nat, dev):
                 nat_ip=nat, salt=0x9e3779b9)
 
 
+def vpc_bound(card: Card, n: int, r: int, allowed: int):
+    """Least ms of the fused datapath over n packets, r rules and this
+    run's allowed packets (only those need a keystream): headers, payload
+    and counter read and the verdict byte, headers and payload written,
+    173 bytes a packet, against FW_OPS_PER_RULE a rule, the NAT hash and a
+    ChaCha20 block per allowed packet at the integer issue rate.  Returns
+    (ms, which binds, bytes, operations)."""
+    nbytes = n * ((5 + 16 + 1) * 4 + 1 + (5 + 16) * 4) + r * 16 + 12 * 4
+    ops = n * (FW_OPS_PER_RULE * r + NAT_OPS) + allowed * CHACHA_OPS_PER_BLOCK
+    return (*card.bound(nbytes, ops), nbytes, ops)
+
+
 def vpc_line(card: Card, args, launches: int) -> dict:
     from repro_torch.kernels.vpc_datapath.kernel import (vpc_datapath_cuda,
                                                          vpc_datapath_plain)
@@ -845,9 +913,7 @@ def vpc_line(card: Card, args, launches: int) -> dict:
     expect(same_triple(out, vpc_datapath_plain(**args)),
            "vpc_datapath differs from plain at the main-path shape")
     allowed = int(out[0].sum())
-    nbytes = n * ((5 + 16 + 1) * 4 + 1 + (5 + 16) * 4) + r * 16 + 12 * 4
-    ops = n * (FW_OPS_PER_RULE * r + NAT_OPS) + allowed * CHACHA_OPS_PER_BLOCK
-    bound, by = card.bound(nbytes, ops)
+    bound, by, nbytes, ops = vpc_bound(card, n, r, allowed)
     diff = max_abs_err(out, vpc_datapath_plain(**args))
     return {"name": "vpc_datapath", "route": "cuda",
             "source": "src/repro_torch/csrc/vpc_datapath.cu",
@@ -1721,10 +1787,12 @@ def wkv_line(card: Card, typical, launches: int, path: str) -> dict:
 # ----------------------------------------------------- quantize kernels ----
 def check_quantize(dev) -> dict:
     """The quantize and dequantize kernels against their plain versions,
-    bit for bit (q, scale and the dequantized values, ``torch.equal``),
-    over the sweep, one whole embedding-sized row, an all-zero row, a row
-    with one 1e30 among values near 1e-30 and a view at an odd element
-    offset."""
+    bit for bit (q, scale and the dequantized values, ``torch.equal``, a
+    NaN equal to a NaN), over the sweep, one whole embedding-sized row, an
+    all-zero row, a row with one 1e30 among values near 1e-30, rows at
+    QUANT_MAGNITUDES, views at an odd element offset and the quantize
+    kernel's edges (its hold per block and per grid, rows across tiles,
+    D = 0)."""
     import itertools
 
     import torch
@@ -1739,10 +1807,10 @@ def check_quantize(dev) -> dict:
         q, s = quantize_int8_cuda(x)
         qr, sr = quantize_int8_ref(x)
         torch.cuda.synchronize()
-        expect(torch.equal(q, qr) and torch.equal(s, sr),
+        expect(torch.equal(q, qr) and same_values(s, sr),
                f"quantize_int8 {what}: q or scale differs from plain")
         for dt in outs:
-            expect(torch.equal(dequantize_int8_cuda(q, s, dt),
+            expect(same_values(dequantize_int8_cuda(q, s, dt),
                                dequantize_int8_ref(qr, sr, dt)),
                    f"dequantize_int8 {what} -> {dt} differs from plain")
 
@@ -1765,11 +1833,45 @@ def check_quantize(dev) -> dict:
     spike = torch.full((1, 4097), 1e-30, device=dev)
     spike[0, 2000] = 1e30
     held(spike, "one 1e30 among 1e-30s")
-    base = torch.randn((1 << 20) + 1, generator=gen, device=dev)
-    view = base[1:].view(1, -1)
-    expect(view.data_ptr() % 16 != 0, "the odd-offset view is aligned")
-    held(view, "a view at an odd element offset")
-    return {"cases": n + 4, "sweep": QUANT_SWEEP,
+    for mag in QUANT_MAGNITUDES:
+        for xd in ("float32", "bfloat16"):
+            x = (torch.randn((4, 40000), generator=gen, device=dev) *
+                 mag).to(getattr(torch, xd))
+            held(x, f"randn x {mag:g}, x {xd}")
+            n += 1
+    for xd in ("float32", "bfloat16"):
+        base = (torch.randn((1 << 20) + 1, generator=gen, device=dev) *
+                3).to(getattr(torch, xd))
+        view = base[1:].view(1, -1)
+        expect(view.data_ptr() % 16 != 0, "the odd-offset view is aligned")
+        held(view, f"a view at an odd element offset, x {xd}")
+    # the design's edges: rows on each side of one block's shared-memory
+    # hold, of the whole grid's, and one more block's worth (blocks with
+    # tiles to re-read); more rows than resident blocks; rows that tiles
+    # cut; more rows than one launch's grid.y once allowed; D = 0
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.quantize.kernel import SLOTS, TILE_BYTES
+    lib = _build.library("quantize")
+    edges = {}
+    for code, xd in ((0, "float32"), (1, "bfloat16")):
+        hold = SLOTS * TILE_BYTES // (4 - 2 * code)
+        blocks = lib.quantize_int8_grid_blocks(code)
+        expect(blocks > 0, f"quantize_int8_grid_blocks({code}) = {blocks}")
+        edges[xd] = {"block_hold": hold, "grid_blocks": blocks}
+        shapes = [(1, hold - 1), (1, hold), (1, hold + 1),
+                  (1, blocks * hold - 1), (1, blocks * hold),
+                  (1, blocks * hold + 1), (1, (blocks + 1) * hold + 1),
+                  (blocks + 1, 4097), (7, 1000003), (70000, 3), (3, 0)]
+        for R, D in shapes:
+            x = (torch.randn((R, D), generator=gen, device=dev) * 3).to(
+                getattr(torch, xd))
+            held(x, f"R={R} D={D} x {xd}")
+        edges[xd]["shapes"] = shapes
+        n += len(shapes)
+    q, s = quantize_int8_cuda(torch.zeros((3, 0), device=dev))
+    expect(q.shape == (3, 0) and bool((s == float(
+        np.float32(1e-12) / np.float32(127.0))).all()), "D = 0 rows' scale")
+    return {"cases": n + 5, "sweep": QUANT_SWEEP, "edges": edges,
             "embedding_row": EMBED_ELEMENTS, "bit_exact": True}
 
 
@@ -1804,8 +1906,9 @@ def raw_dequantize(q, scale):
 
 def quantize_lines(card: Card, launches: dict) -> list:
     """The kernels line's two quantize entries: each timed at the
-    embedding's row (1, 622,329,856) and at an MLP weight's (1,
-    50,331,648), f32 in and out, against 5 bytes an element (x read once
+    embedding's row (1, 622,329,856), and beside it at an MLP weight's (1,
+    50,331,648) and the attention projections' (1, 16,777,216) and (1,
+    4,194,304), f32 in and out, against 5 bytes an element (x read once
     and q written once; q read once and the output written once)."""
     import torch
 
@@ -1815,7 +1918,7 @@ def quantize_lines(card: Card, launches: dict) -> list:
                                               quantize_int8_ref)
     gen = torch.Generator(device="cuda").manual_seed(18)
     rows = {}
-    for name, D in (("embedding", EMBED_ELEMENTS), ("mlp", MLP_ELEMENTS)):
+    for name, D in QUANT_ROWS.items():
         x = torch.randn((1, D), generator=gen, device="cuda")
         q, s = quantize_int8_cuda(x)
         qr, sr = quantize_int8_ref(x)
@@ -1845,7 +1948,7 @@ def quantize_lines(card: Card, launches: dict) -> list:
     lines = []
     for name, at in (("quantize_int8", 34), ("dequantize_int8", 51)):
         kind = name.split("_")[0]
-        emb, mlp = rows["embedding"][kind], rows["mlp"][kind]
+        emb = rows["embedding"][kind]
         lines.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/quantize.cu",
@@ -1861,7 +1964,8 @@ def quantize_lines(card: Card, launches: dict) -> list:
             "library": "torch.mul(q, scale) (int8 x f32 promotes to f32)"
                        if kind == "dequantize" else
                        "none: no single PyTorch call",
-            "mlp": {"D": MLP_ELEMENTS, **mlp}})
+            **{row: {"D": D, **rows[row][kind]}
+               for row, D in QUANT_ROWS.items() if row != "embedding"}})
     return lines
 
 
@@ -2198,6 +2302,7 @@ def train_path(dev, profile: bool = False):
     torch.cuda.reset_peak_memory_stats()
     for k in kernels.values():
         k.launches = 0                       # this path's counts start here
+    quantize_int8_cuda.shapes.clear()
     ends, lines = [], []
 
     def log(line: str) -> None:             # after each step's logging sync
@@ -2208,6 +2313,7 @@ def train_path(dev, profile: bool = False):
     losses = tr.run(TRAIN_STEPS, TRAIN_B, TRAIN_S, seed=TRAIN_SEED,
                     log_every=1, log=log)
     launches = {name: k.launches for name, k in kernels.items()}
+    quant_shapes = dict(quantize_int8_cuda.shapes)
     peak = torch.cuda.max_memory_allocated()
 
     n_leaves = len(leaves(tr.params))
@@ -2256,7 +2362,35 @@ def train_path(dev, profile: bool = False):
     free_device()
     record["restart"] = restart_on_card(dev, get_config(TRAIN_ARCH))
     free_device()
+    record.update(quantize_step(quant_shapes, median_s))
+    free_device()
     return record, launches
+
+
+def quantize_step(shapes: dict, step_s: float) -> dict:
+    """The train step's quantize device time: its launches at each (R, D)
+    (``quantize_int8_cuda.shapes`` over the run) times the raw-launch ms
+    there, on a fresh f32 x of that shape, after the restart check (right
+    after the run the warm card timed the largest rows slower), with the
+    clocks, temperature and power then."""
+    import torch
+    expect(sum(shapes.values()) % TRAIN_STEPS == 0,
+           f"quantize launches by shape {shapes} are not whole steps")
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    ms = {}
+    for (R, D), count in sorted(shapes.items()):
+        x = torch.randn((R, D), generator=gen, device="cuda")
+        ms[R, D] = cuda_ms(raw_quantize(x), 10 if R * D > 1 << 27 else 50)
+        del x
+    per_step = sum(ms[shape] * count / TRAIN_STEPS
+                   for shape, count in shapes.items())
+    return {"quantize_int8_ms_per_step": per_step,
+            "quantize_int8_measured_at": nvidia_smi(
+                "clocks.sm,clocks.mem,temperature.gpu,power.draw"),
+            "quantize_int8_share_of_step": per_step / 1e3 / step_s,
+            "quantize_int8_by_shape": [
+                {"R": R, "D": D, "launches_per_step": count / TRAIN_STEPS,
+                 "ms": ms[R, D]} for (R, D), count in sorted(shapes.items())]}
 
 
 def free_device() -> None:

@@ -184,12 +184,13 @@ BUILTIN_COMPUTE_NTS: dict[str, ComputeNT] = {
     "firewall": ComputeNT(
         "firewall", _fw_nt, writes=("allow",), reads=("headers",),
         schema=(("headers", (5,), "uint32"), ("allow", (), "bool")),
-        # fused-kernel share: the staged rule chunk
+        # fused-kernel share: the staged rule chunk and the tile's header
+        # rows, counters and allowed list
         tile_bytes=_vpc_tile() - _chacha_tile()),
     "nat": ComputeNT(
         "nat", _nat_nt, writes=("headers",), reads=("headers",),
         schema=(("headers", (5,), "uint32"),),
-        tile_bytes=0),                       # headers stay in registers
+        tile_bytes=0),       # rewrites the header rows the firewall staged
     "chacha20": ComputeNT(
         "chacha20", _chacha_nt, writes=("payload",),
         reads=("payload", "ctr"),

@@ -59,6 +59,7 @@ SIGNATURES: dict[str, dict[str, tuple[list, type]]] = {
         "quantize_int8_launch": ([_P, _INT, _P, _P, _P, _I64, _I64, _P],
                                  _INT),
         "dequantize_int8_launch": ([_P, _P, _P, _INT, _I64, _I64, _P], _INT),
+        "quantize_int8_grid_blocks": ([_INT], _I64),
     },
     "rwkv6_scan": {
         "rwkv6_wkv_launch": (

@@ -4,13 +4,17 @@ The kernels (``csrc/quantize.cu``) replace the JAX package's Pallas
 kernels ``kernels/quantize/kernel.py::quantize_int8`` (body
 ``_quant_kernel``) and ``::dequantize_int8`` (body ``_dequant_kernel``).
 The gradient-compression chain quantizes each parameter tensor as one row
-of up to 622 M elements, so a row is spread over thousands of blocks: a
-per-chunk max folded into the row's amax with one ``atomicMax`` on its
-bit pattern, then the rounding pass; dequantize is one elementwise pass.
-Both are bound by bytes (5 an element in f32).  The TPU wrappers'
-``block_rows`` tiling has no counterpart: the kernels pick their own grid
-for any (R, D).  Results are bit for bit those of the plain version
-(:mod:`.ref`).
+of up to 622 M elements.  Quantize is one persistent cooperative launch:
+each block streams its share of the elements through a ring of
+shared-memory tiles (bulk copies on mbarriers) and folds each row's max
+into the amax scratch with ``atomicMax`` on its bit pattern; after a
+grid-wide barrier it rounds the tiles it still holds, then re-reads the
+rest of its share back to front, so what L2 still holds comes first.
+Dequantize is one elementwise pass.  Both are bound by bytes (5 an element
+in f32; quantize moves 9 for what the card could not hold between its
+phases).  The TPU wrappers' ``block_rows`` tiling has no counterpart: the
+kernels pick their own grid for any (R, D).  Results are bit for bit those
+of the plain version (:mod:`.ref`).
 
 The wrappers check their inputs and raise on anything the kernels do not
 take; they never fall back to the plain version.
@@ -21,10 +25,15 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["dequantize_int8_cuda", "quantize_int8_cuda"]
+__all__ = ["SLOTS", "TILE_BYTES", "dequantize_int8_cuda",
+           "quantize_int8_cuda"]
 
 #: kernel dtype codes
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: bytes of one quantize tile and tiles a block holds in shared memory
+#: between its phases (``kTileBytes``, ``kSlots`` in the source)
+TILE_BYTES = 65536
+SLOTS = 3
 
 
 def _require(t, name: str, dtypes, device=None) -> None:
@@ -43,10 +52,11 @@ def _require(t, name: str, dtypes, device=None) -> None:
 
 
 def quantize_int8_cuda(x):
-    """Launch the quantize kernels on the current stream (no
+    """Launch the quantize kernel on the current stream (no
     synchronisation).  x: (R, D) f32 or bf16, contiguous, on a CUDA device.
     Returns (q (R, D) int8, scale (R, 1) f32).  Counts its launches in
-    ``quantize_int8_cuda.launches``."""
+    ``quantize_int8_cuda.launches``, and by (R, D) in
+    ``quantize_int8_cuda.shapes``."""
     _require(x, "x", _DTYPES)
     R, D = x.shape
     q = torch.empty((R, D), dtype=torch.int8, device=x.device)
@@ -62,6 +72,8 @@ def quantize_int8_cuda(x):
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "quantize_int8")
     quantize_int8_cuda.launches += 1
+    shapes = quantize_int8_cuda.shapes
+    shapes[R, D] = shapes.get((R, D), 0) + 1
     return q, scale
 
 
@@ -93,4 +105,5 @@ def dequantize_int8_cuda(q, scale, dtype=torch.float32):
 
 
 quantize_int8_cuda.launches = 0
+quantize_int8_cuda.shapes = {}
 dequantize_int8_cuda.launches = 0

@@ -3,13 +3,16 @@ The CUDA kernel and its plain fused version.
 
 The kernel (``csrc/vpc_datapath.cu``) replaces the JAX package's Pallas
 kernel ``kernels/vpc_datapath/kernel.py::vpc_datapath_kernel_call`` (body
-``_vpc_datapath_kernel``).  One thread per packet: the longest-prefix match
-over the rule table (staged into shared memory in chunks), the NAT rewrite
-and the ChaCha20 keystream all stay in registers, and the egress verdict is
-applied in the same pass, so each packet is read once and written once.  On
-an H100 it is bound by the INT32 issue rate (about 5 integer operations per
-rule and 1,000 for the keystream, against 173 bytes a packet), not by
-memory; see the source for the design.
+``_vpc_datapath_kernel``).  A block of 128 threads takes a tile of 256
+packets, two a thread: its header rows arrive in shared memory
+by coalesced 16-byte loads; the longest-prefix match walks the rule table
+(staged in shared memory in chunks, each rule packed as ``{prefix, mask,
+key}``) with a mask, a compare and a predicated max per rule and packet;
+each warp then runs the ChaCha20 rounds over its allowed packets only,
+reading and writing their payload straight from device memory, so each
+packet is read once and written once.  On an H100 its operations (3 a rule,
+~1,000 a keystream) and its 173 bytes a packet nearly balance at 300 rules;
+see the source for the design.
 
 Inputs are preprocessed by :mod:`.ops`: per-packet counters ``ctr`` (N,) and
 the rule table (R, 4) of ``{prefix, mask, mask length, allow}`` rows, all
@@ -18,8 +21,9 @@ tensor launches the kernel, a CPU tensor takes :func:`vpc_datapath_plain`,
 anything else raises.
 
 Firewall tie-breaking: the reference resolves equal-length prefix hits with
-``argmax`` (first index wins).  The kernel keeps the first strictly longer
-hit while it walks the rules in order; the plain version keeps the Pallas
+``argmax`` (first index wins).  The kernel takes the largest key
+``hit << 31 | mlen << 25 | (R - 1 - idx) << 1 | allow`` over the hits (so
+at most :data:`MAX_RULES` rules); the plain version keeps the Pallas
 kernel's unique priority ``mlen * R + (R - 1 - idx)`` — the same winner by
 construction, so the two check each other.
 """
@@ -31,11 +35,19 @@ from repro_torch._u32 import mul32, shl32, where32, widen
 from repro_torch.kernels import _build
 from repro_torch.kernels.chacha20.core import xor_keystream
 
-__all__ = ["RULE_CHUNK", "vpc_datapath_cuda", "vpc_datapath_fused",
-           "vpc_datapath_plain"]
+__all__ = ["MAX_RULES", "RULE_CHUNK", "SMEM_BYTES", "TILE_PACKETS",
+           "vpc_datapath_cuda", "vpc_datapath_fused", "vpc_datapath_plain"]
 
 #: rules staged into shared memory per pass (``kRuleChunk`` in the source)
 RULE_CHUNK = 1024
+#: packets a block takes (two a thread, ``kTile`` in the source)
+TILE_PACKETS = 256
+#: rules the key's 24 index bits can rank (``kMaxRules``)
+MAX_RULES = 1 << 24
+#: shared memory one block holds (``sizeof(Smem)``): the rule
+#: chunk (16 bytes a rule) and per packet its header row (20 bytes),
+#: counter (4) and place in the allowed list (2)
+SMEM_BYTES = RULE_CHUNK * 16 + TILE_PACKETS * (20 + 4 + 2)
 
 #: the plain version takes packets in chunks so its (rows, R) priority
 #: matrix stays near this many elements
@@ -83,8 +95,9 @@ def vpc_datapath_cuda(headers, payload, ctr, rule_table, key, nonce, nat_ip,
                       salt: int):
     """Launch the CUDA kernel on the current stream (no synchronisation).
     Every input contiguous u32 on one CUDA device: headers (N, 5), payload
-    (N, 16), ctr (N,), rule_table (R, 4) with R >= 1, key (8,), nonce (3,),
-    nat_ip (1,).  Counts its launches in ``vpc_datapath_cuda.launches``."""
+    (N, 16), ctr (N,), rule_table (R, 4) with 1 <= R <= ``MAX_RULES``, key
+    (8,), nonce (3,), nat_ip (1,).  Counts its launches in
+    ``vpc_datapath_cuda.launches``."""
     dev = headers.device
     n = headers.shape[0]
     _build.require(headers, "headers", (-1, 5), dev)
@@ -97,6 +110,9 @@ def vpc_datapath_cuda(headers, payload, ctr, rule_table, key, nonce, nat_ip,
     r = rule_table.shape[0]
     if r < 1:
         raise ValueError("vpc_datapath needs at least one firewall rule")
+    if r > MAX_RULES:
+        raise ValueError(f"vpc_datapath takes at most {MAX_RULES} firewall "
+                         f"rules, got {r}")
     allow = torch.empty(n, dtype=torch.bool, device=dev)
     hout = torch.empty_like(headers)
     pout = torch.empty_like(payload)

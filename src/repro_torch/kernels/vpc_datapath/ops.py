@@ -12,15 +12,15 @@ import torch
 
 from repro_torch._u32 import arange32, narrow, popcount32, widen
 
-from .kernel import RULE_CHUNK, vpc_datapath_fused
+from .kernel import SMEM_BYTES, vpc_datapath_fused
 
 
 def smem_tile_bytes() -> int:
     """Shared memory one block of the CUDA kernel holds: the staged rule
-    chunk, 16 bytes a rule.  Packet state lives in registers.  The admission
-    verifier sums this per fused branch against
-    ``core.vmem.VMEM_BUDGET_BYTES``."""
-    return RULE_CHUNK * 16
+    chunk and the tile's header rows, counters and allowed list
+    (``kernel.SMEM_BYTES``).  The admission verifier sums this per fused
+    branch against ``core.vmem.VMEM_BUDGET_BYTES``."""
+    return SMEM_BYTES
 
 
 def rule_table(rules, device) -> torch.Tensor:

@@ -128,5 +128,73 @@ def make_packets(n: int, seed: int = 0, device=None):
     return torch.from_numpy(headers).to(dev), torch.from_numpy(payload).to(dev)
 
 
-__all__ = ["chacha20_xor", "firewall", "make_packets", "make_rules",
-           "nat_rewrite", "vpc_chain"]
+#: the rule tables of :func:`make_edge_case`
+EDGE_CASES = ("zero_deny_last", "host_routes", "ties_first_last", "all_deny",
+              "all_allow", "two_chunks")
+
+
+def make_edge_case(kind: str, n: int, seed: int = 0, device=None):
+    """Packets and a rule table at one edge of the fused kernel's packed
+    rule key (``csrc/vpc_datapath.cu``: hit bit, mask length, R - 1 - index
+    and verdict in one word).  Every fourth packet's destination is one of
+    the batch's first eight, around which the rules are built:
+      - ``zero_deny_last``: 32 random rules, then a /0 deny at the last
+        index, whose key (0x80000000) must not read as "no hit";
+      - ``host_routes``: a /24 allow, then /32 deny and allow rules and a
+        /31 deny on those destinations;
+      - ``ties_first_last``: equal /16s on one destination at index 0
+        (allow) and R - 1 (deny), and an equal /20 pair in the middle: the
+        first of each pair wins;
+      - ``all_deny`` / ``all_allow``: every rule one verdict, with a /0;
+      - ``two_chunks``: 1,025 rules, a /28 deny the only rule of the second
+        1,024-rule chunk and a /24 allow on the same destination before it.
+    Returns (headers (n, 5), payload (n, 16), (prefix, mask, allow)) on
+    ``device``, drawn with numpy from ``seed``."""
+    dev = _device.resolve(device)
+    rng = np.random.default_rng(seed)
+    headers = rng.integers(0, 2 ** 32, (n, 5), dtype=np.uint32)
+    payload = rng.integers(0, 2 ** 32, (n, 16), dtype=np.uint32)
+    dsts = headers[:8, 1].copy()
+    headers[::4, 1] = dsts[np.arange(0, n, 4) // 4 % dsts.size]
+
+    def rule(k: int, bits: int, allow: bool):
+        mask = (0xFFFFFFFF << (32 - bits)) & 0xFFFFFFFF
+        return int(dsts[k % dsts.size]) & mask, mask, allow
+
+    def random_rules(count: int, allow=None):
+        lens = rng.integers(8, 25, count)
+        masks = [(0xFFFFFFFF << (32 - int(b))) & 0xFFFFFFFF for b in lens]
+        verdicts = rng.random(count) < 0.5 if allow is None else [allow] * count
+        return [(int(v) & m, m, bool(a)) for v, m, a in zip(
+            rng.integers(0, 2 ** 32, count, dtype=np.uint32), masks,
+            verdicts)]
+
+    body = random_rules(1024 if kind == "two_chunks" else 32,
+                        {"all_deny": False, "all_allow": True}.get(kind))
+    if kind == "zero_deny_last":
+        rows = body + [(0, 0, False)]
+    elif kind == "host_routes":
+        rows = [rule(0, 24, True)] + body + [
+            rule(0, 32, False), rule(1, 32, True), rule(1, 31, False)]
+    elif kind == "ties_first_last":
+        rows = [rule(0, 16, True)] + body[:15] + [
+            rule(1, 20, False), rule(1, 20, True)] + body[15:] + [
+            rule(0, 16, False)]
+    elif kind == "all_deny":
+        rows = body[:16] + [(0, 0, False)] + body[16:]
+    elif kind == "all_allow":
+        rows = [(0, 0, True)] + body
+    elif kind == "two_chunks":
+        rows = body[:1023] + [rule(2, 24, True), rule(2, 28, False)]
+    else:
+        raise ValueError(f"unknown edge case {kind!r}; one of {EDGE_CASES}")
+    prefixes, masks, allow = (np.asarray(c) for c in zip(*rows))
+    return (torch.from_numpy(headers).to(dev),
+            torch.from_numpy(payload).to(dev),
+            (torch.from_numpy(prefixes.astype(np.uint32)).to(dev),
+             torch.from_numpy(masks.astype(np.uint32)).to(dev),
+             torch.from_numpy(allow.astype(bool)).to(dev)))
+
+
+__all__ = ["EDGE_CASES", "chacha20_xor", "firewall", "make_edge_case",
+           "make_packets", "make_rules", "nat_rewrite", "vpc_chain"]

@@ -30,6 +30,7 @@ from repro_torch.kernels.quantize import (dequantize, dequantize_int8_cuda,
                                           dequantize_int8_ref, quantize,
                                           quantize_int8_cuda,
                                           quantize_int8_ref)
+from repro_torch.kernels.quantize.kernel import TILE_BYTES
 from repro_torch.optim import compress
 
 DT = {"float32": (jnp.float32, torch.float32),
@@ -96,6 +97,28 @@ def test_matches_the_pallas_kernel_in_interpret_mode(R, D, br, dtype):
                                rtol=1e-6, atol=np.asarray(js).max())
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("R", [1, 2, 133])
+@pytest.mark.parametrize("dD", [-1, 0, 1])
+def test_plain_matches_jax_around_the_kernel_tile(dD, R, dtype):
+    """D one under, at and one over the CUDA kernel's 64 KB tile (16,384
+    f32 or 32,768 bf16 elements), where its rows start inside tiles: the
+    plain version bit for bit the JAX package's jnp ref and compression
+    helper, and the Pallas kernel in interpret mode within the reference's
+    tolerance (above)."""
+    D = TILE_BYTES // torch.tensor([], dtype=DT[dtype][1]).element_size() \
+        + dD
+    jx, tx = inputs(R, D, dtype, seed=11)
+    q, s = quantize_int8_ref(tx)
+    for jq, js in (jref.quantize_int8_ref(jx), jcompress.quant_int8(jx)):
+        assert equal(q, jq) and equal(s, js)
+    kq, ks = jkernel.quantize_int8(jx, block_rows=R, interpret=True)
+    np.testing.assert_allclose(s.numpy(), np.asarray(ks), rtol=1e-6)
+    same = (s.numpy() == np.asarray(ks))[:, 0]
+    dq = np.abs(q.numpy().astype(np.int32) - np.asarray(kq, np.int32))
+    assert (dq[same] == 0).all() and (dq <= 1).all()
+
+
 def test_all_zero_row_and_empty_rows():
     x = np.zeros((2, 50), np.float32)
     x[1] = np.linspace(-1, 1, 50)
@@ -116,6 +139,28 @@ def test_one_huge_value_among_tiny_ones():
     jq, js = jcompress.quant_int8(jnp.asarray(x))
     assert equal(q, jq) and equal(s, js)
     assert q[0, 500] == 127 and int(q.abs().sum()) == 127
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rows_with_inf_or_nan_quantize_to_zero_like_jax(dtype):
+    """A row holding an inf has an inf scale and one holding a NaN a NaN
+    scale; every element of either quantizes to 0 in the JAX package (x /
+    inf is 0, inf / inf and NaN are NaN, which its clip keeps and the int8
+    conversion makes 0) and in the port's plain version, which the CUDA
+    kernel is held to bit for bit on the card."""
+    x = np.random.default_rng(4).standard_normal((4, 300)).astype(
+        np.float32) * 3
+    x[0, 7], x[0, 100] = np.inf, -np.inf
+    x[1, 50] = np.nan
+    x[2, 9] = np.inf
+    jd, td = DT[dtype]
+    q, s = quantize_int8_ref(torch.from_numpy(x).to(td))
+    for jq, js in (jref.quantize_int8_ref(jnp.asarray(x, jd)),
+                   jcompress.quant_int8(jnp.asarray(x, jd))):
+        assert equal(q, jq)
+        np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+    assert not q[:3].any() and q[3].abs().max() == 127
+    assert np.isinf(s[0, 0].item()) and np.isnan(s[1, 0].item())
 
 
 def test_compress_helpers_keep_leading_dims():

@@ -244,6 +244,29 @@ def test_vpc_datapath_matches_jax_interpret(n, explicit_ctr):
         same(r_, w)
 
 
+@pytest.mark.parametrize("n", [1, 9])
+@pytest.mark.parametrize("kind", tvpc.EDGE_CASES)
+def test_vpc_datapath_edge_tables_match_jax_interpret(kind, n):
+    """The rule tables at the CUDA kernel's packed-key edges (a /0 deny
+    last, /32 rules, equal lengths at index 0 and R - 1, all-deny and
+    all-allow, a rule alone in the second 1,024-rule chunk): the port's
+    plain fused version, bit for bit the Pallas kernel in interpret mode
+    and the composed chain."""
+    h, p, rules = tvpc.make_edge_case(kind, n, seed=n, device="cpu")
+    nrules = tuple(np.asarray(x) for x in rules)
+    want = jax_vpc_datapath(np.asarray(h), np.asarray(p), nrules,
+                            jnp.asarray(KEY), jnp.asarray(NONCE),
+                            interpret=True)
+    chain = jvpc.vpc_chain(np.asarray(h), np.asarray(p), nrules,
+                           jnp.asarray(KEY), jnp.asarray(NONCE))
+    got = vpc_datapath(h, p, rules, t(KEY), t(NONCE))
+    for g, w, c in zip(got, want, chain):
+        same(g, w)
+        same(g, c)
+    if kind in ("all_deny", "all_allow"):
+        assert bool((got[0] == (kind == "all_allow")).all())
+
+
 def test_vpc_datapath_tensor_counter0_wraps_like_jax():
     rules = rules_np(32, seed=5)
     h, p = jvpc.make_packets(9, seed=5)
@@ -301,7 +324,10 @@ def test_rule_table_and_smem_bytes():
     same(table[:, 3], rules[2].astype(np.uint32))
     assert chacha_ops.smem_tile_bytes() == 0
     from repro_torch.kernels.vpc_datapath.ops import smem_tile_bytes
-    assert smem_tile_bytes() == vpc_kernel.RULE_CHUNK * 16
+    assert smem_tile_bytes() == vpc_kernel.SMEM_BYTES == (
+        vpc_kernel.RULE_CHUNK * 16 + vpc_kernel.TILE_PACKETS * 26)
+    from repro_torch.core.vmem import VMEM_BUDGET_BYTES
+    assert smem_tile_bytes() <= VMEM_BUDGET_BYTES
 
 
 # ====================================================== wrapper contract ====

@@ -1,31 +1,38 @@
 #!/usr/bin/env python3
 """Before and after on one card: the port's ``moe_gmm``,
-``flash_attention``, ``rwkv6_wkv`` and ``mamba_ssm`` CUDA kernels against
-an earlier version of their sources, at the shapes the serving and
-training paths give them.
+``flash_attention``, ``rwkv6_wkv``, ``mamba_ssm``, ``quantize_int8`` and
+``vpc_datapath`` CUDA kernels against an earlier version of their sources,
+at the shapes the serving, training and datapath paths give them.
 
     mkdir -p build/ab_old
-    for f in rwkv6_scan mamba_scan; do
-        git show <commit>:src/repro_torch/csrc/$f.cu > build/ab_old/$f.cu
+    for f in quantize.cu vpc_datapath.cu chacha20.cuh; do
+        git show <commit>:src/repro_torch/csrc/$f > build/ab_old/$f
     done
     python3 tools/kernel_ab.py --old build/ab_old
 
 The directory may hold any of ``moe_gmm.cu``, ``flash_attention.cu``,
-``rwkv6_scan.cu`` and ``mamba_scan.cu``; the kernels of the sources it
-holds are compared.  Builds both versions of each with the port's ``nvcc``
-flags into ``build/kernel_ab/`` (one ``nvcc`` per library, all started
-together), holds both against the plain PyTorch versions (the reference's
-tolerances: ``chip_smoke.close``, ``chip_smoke.wkv_close``), and times raw
+``rwkv6_scan.cu``, ``mamba_scan.cu``, ``quantize.cu`` and
+``vpc_datapath.cu`` (with the ``chacha20.cuh`` that the last includes; each
+version is built with ``-I`` on its own directory); the kernels of the
+sources it holds are compared.  Builds both versions of each with the
+port's ``nvcc`` flags into ``build/kernel_ab/`` (one ``nvcc`` per library,
+all started together), holds both against the plain PyTorch versions (the
+reference's tolerances: ``chip_smoke.close``, ``chip_smoke.wkv_close``;
+``torch.equal`` for the integer and quantize kernels), and times raw
 launches of the C entry points with CUDA events in the order old, new,
 new, old.  Beside them: the bound (``chip_smoke.Card``); the PyTorch calls
 that compute the same function (``torch.bmm`` on bf16 weights;
 ``w.to(torch.bfloat16)`` then ``torch.bmm``, two calls, with the cast
 inside the timing; ``scaled_dot_product_attention``); and at the scans'
-decode shapes an empty kernel of each version's launch shape, timed the
-same way, the floor of a raw launch paced by the host.  Prints the
-``nvidia-smi`` name and power limit, one JSON line per shape, and writes
-them all to ``chiprun_out/kernel_ab.json``.  Needs a CUDA device; imports
-nothing of JAX.
+decode shapes and the datapath's an empty kernel of each version's launch
+shape, timed the same way, the floor of a raw launch paced by the host.
+Quantize runs at the train step's row sizes (each version's amax scratch
+zeroed inside its timing), over rows of 4-64 M elements (where the second
+read leaves L2), and sums a train step's launches
+(``quantize_int8_ms_per_step``).  Prints the ``nvidia-smi`` name and power
+limit, one JSON line per shape, and writes them all to
+``chiprun_out/kernel_ab.json``.  Needs a CUDA device; imports nothing of
+JAX.
 """
 from __future__ import annotations
 
@@ -43,10 +50,13 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import chip_smoke as cs  # noqa: E402
 
-SOURCES = ("moe_gmm", "flash_attention", "rwkv6_scan", "mamba_scan")
+SOURCES = ("moe_gmm", "flash_attention", "rwkv6_scan", "mamba_scan",
+           "quantize", "vpc_datapath")
 ENTRY = {"moe_gmm": "moe_gmm_launch",
          "flash_attention": "flash_attention_launch",
-         "rwkv6_scan": "rwkv6_wkv_launch", "mamba_scan": "mamba_ssm_launch"}
+         "rwkv6_scan": "rwkv6_wkv_launch", "mamba_scan": "mamba_ssm_launch",
+         "quantize": "quantize_int8_launch",
+         "vpc_datapath": "vpc_datapath_launch"}
 #: launches a timing averages over, and at the scans' one-step shapes
 REPS = 10
 DECODE_REPS = 100
@@ -76,6 +86,18 @@ WKV_SHAPES = (("prefill", 2, 1421, 40, 64, False),
 #: di 8,192, d_state 16), likewise
 SCAN_SHAPES = (("prefill", 2, 1421, 8192, False),
                ("decode", 2, 1, 8192, True))
+#: the train step's quantize launches (qwen3-8b at full width, 8 layers;
+#: each f32 gradient one row): D -> launches a step.  The embedding and
+#: the head (151,936 x 4,096), 24 MLP weights (4,096 x 12,288), 16 of
+#: q/o (4,096 x 4,096) and 16 of k/v (4,096 x 1,024), 17 norms of 4,096
+#: and 16 q/k norms of 128: 91 tensors
+TRAIN_ROWS = {622329856: 2, 50331648: 24, 16777216: 16, 4194304: 16,
+              4096: 17, 128: 16}
+#: rows (1, D) f32 between them, to show where the second read leaves L2
+L2_ROWS = (8 << 20, 32 << 20, 64 << 20)
+#: the datapath's raw launches: (N, R), the main path's bucket and a
+#: larger batch where the host's launch floor matters less
+VPC_SHAPES = ((131072, 300), (1048576, 300))
 #: an empty kernel, for the floor of a raw launch at a given launch shape
 EMPTY_CU = r"""
 #include <cuda_runtime.h>
@@ -105,8 +127,8 @@ def build(old_dir: Path, sources: list) -> dict:
             jobs[version, name] = (src_dir / f"{name}.cu",
                                    out_dir / f"lib{name}_{version}.so")
     procs = {key: (lib, subprocess.Popen(
-        _build.command(nvcc, src, lib), stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True))
+        [*_build.command(nvcc, src, lib), f"-I{src.parent}"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
         for key, (src, lib) in jobs.items()}
     libs, ptxas = {}, {}
     for key, (lib, proc) in procs.items():
@@ -341,6 +363,139 @@ def scan_cases(card, libs, kind: str, shape: tuple) -> dict:
     return rec
 
 
+def quant_launch(cdll, x):
+    """A raw quantize launch on fixed buffers that zeroes its amax scratch
+    first (both inside a timing, as the wrapper does them)."""
+    import torch
+    R, D = x.shape
+    q = torch.empty((R, D), dtype=torch.int8, device=x.device)
+    scale = torch.empty((R, 1), dtype=torch.float32, device=x.device)
+    amax = torch.zeros((R,), dtype=torch.int32, device=x.device)
+    launch = launcher(cdll, "quantize_int8_launch", [
+        x.data_ptr(), 0 if x.dtype == torch.float32 else 1, q.data_ptr(),
+        scale.data_ptr(), amax.data_ptr(), R, D,
+        torch.cuda.current_stream().cuda_stream], (q, scale))
+
+    def run():
+        amax.zero_()
+        launch()
+    run.keep = launch.keep
+    return run
+
+
+def quant_case(card, libs, D: int) -> dict:
+    """One (1, D) f32 row: both versions bit for bit against the plain
+    version, timed in turns."""
+    import torch
+
+    from repro_torch.kernels.quantize import quantize_int8_ref
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    x = torch.randn((1, D), generator=gen, device="cuda")
+    want = quantize_int8_ref(x)
+    fns = {v: quant_launch(libs[v, "quantize"], x) for v in ("old", "new")}
+    for v, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        cs.expect(all(torch.equal(a, b) for a, b in zip(fn.keep, want)),
+                  f"quantize_int8 D={D} ({v}) differs from plain")
+    del want
+    reps = 10 if D > 1 << 27 else 50 if D > 1 << 20 else 200
+    bound, by = card.bound(5 * D + 4, 0)
+    return {"kernel": "quantize_int8", "shape": {"R": 1, "D": D},
+            "x": "torch.float32", "bit_exact": True, "ms": turns(fns, reps),
+            "bound_ms": bound, "bound_by": by, "bytes": 5 * D + 4,
+            "launches_per_train_step": TRAIN_ROWS.get(D, 0),
+            "library_ms": None, "library": "none: no single PyTorch call"}
+
+
+def quant_special(libs) -> dict:
+    """Rows holding an inf or a NaN (an inf or NaN scale, every q 0 in the
+    plain version): each version against the plain version, the new one
+    required bit for bit, the old one's differing elements counted."""
+    import torch
+
+    from repro_torch.kernels.quantize import quantize_int8_ref
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    x = torch.randn((4, 40000), generator=gen, device="cuda") * 3
+    x[0, 7], x[0, 100], x[1, 50], x[2, 9] = (float("inf"), float("-inf"),
+                                             float("nan"), float("inf"))
+    want = quantize_int8_ref(x)
+    rec = {"kernel": "quantize_int8", "shape": {"R": 4, "D": 40000,
+                                                "rows": "inf, nan"},
+           "x": "torch.float32", "bit_exact": {}, "q_differing": {}}
+    for v in ("old", "new"):
+        fn = quant_launch(libs[v, "quantize"], x)
+        fn()
+        torch.cuda.synchronize()
+        q, s = fn.keep
+        rec["bit_exact"][v] = torch.equal(q, want[0]) and cs.same_values(
+            s, want[1])
+        rec["q_differing"][v] = int((q != want[0]).sum())
+    cs.expect(rec["bit_exact"]["new"],
+              "quantize_int8 rows with inf or nan (new) differ from plain")
+    return rec
+
+
+def quant_step(records: list) -> dict:
+    """A train step's quantize device ms for each version: its launches at
+    each row size times the mean raw-launch ms there."""
+    ms = {r["shape"]["D"]: r["ms"] for r in records
+          if r.get("kernel") == "quantize_int8" and "ms" in r}
+    return {"kernel": "quantize_int8", "shape": "train_step",
+            "rows": TRAIN_ROWS,
+            "ms_per_step": {v: sum(n * sum(ms[D][v]) / len(ms[D][v])
+                                   for D, n in TRAIN_ROWS.items())
+                            for v in ("old", "new")}}
+
+
+def vpc_launch(cdll, a: dict):
+    import torch
+    n = a["headers"].shape[0]
+    outs = (torch.empty(n, dtype=torch.bool, device="cuda"),
+            torch.empty_like(a["headers"]), torch.empty_like(a["payload"]))
+    return launcher(cdll, "vpc_datapath_launch", [
+        a["headers"].data_ptr(), a["payload"].data_ptr(), a["ctr"].data_ptr(),
+        a["rule_table"].data_ptr(), a["key"].data_ptr(), a["nonce"].data_ptr(),
+        a["nat_ip"].data_ptr(), a["salt"], outs[0].data_ptr(),
+        outs[1].data_ptr(), outs[2].data_ptr(), n, a["rule_table"].shape[0],
+        torch.cuda.current_stream().cuda_stream], outs)
+
+
+def vpc_grid(version: str, n: int) -> tuple:
+    """(grid x, grid y, threads) of a datapath launch: one thread a packet
+    in blocks of 256 (the first design, "old"), or blocks of 128 threads
+    with two packets a thread (this one)."""
+    return -(-n // 256), 1, 256 if version == "old" else 128
+
+
+def vpc_case(card, libs, n: int, r: int) -> dict:
+    """One (N, R): both versions bit for bit against the plain version,
+    timed in turns beside an empty kernel of each launch shape."""
+    import torch
+
+    from repro_torch.kernels.vpc_datapath.kernel import vpc_datapath_plain
+    a = cs.vpc_inputs(cs.np.random.default_rng(20), n, r,
+                      torch.device("cuda"))
+    want = vpc_datapath_plain(**a)
+    fns = {v: vpc_launch(libs[v, "vpc_datapath"], a) for v in ("old", "new")}
+    for v, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        cs.expect(cs.same_triple(fn.keep, want),
+                  f"vpc_datapath N={n} R={r} ({v}) differs from plain")
+    allowed = int(want[0].sum())
+    bound, by, nbytes, ops = cs.vpc_bound(card, n, r, allowed)
+    grids = {v: vpc_grid(v, n) for v in fns}
+    return {"kernel": "vpc_datapath", "shape": {"N": n, "R": r,
+                                                "allowed": allowed},
+            "bit_exact": True, "ms": turns(fns, 200), "bound_ms": bound,
+            "bound_by": by, "bytes": nbytes, "int_ops": ops,
+            "launch_shape": grids,
+            "empty_kernel_ms": turns({v: empty_launch(libs, g)
+                                      for v, g in grids.items()}, 200),
+            "library_ms": None, "library": "none: no single PyTorch call"}
+
+
 def main() -> int:
     import torch
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -382,6 +537,13 @@ def main() -> int:
     if "mamba_scan" in sources:
         cases += [lambda s=s: scan_cases(card, libs, "scan", s)
                   for s in SCAN_SHAPES]
+    if "quantize" in sources:
+        cases += [lambda D=D: quant_case(card, libs, D)
+                  for D in sorted({*TRAIN_ROWS, *L2_ROWS})]
+        cases.append(lambda: quant_step(records))
+        cases.append(lambda: quant_special(libs))
+    if "vpc_datapath" in sources:
+        cases += [lambda s=s: vpc_case(card, libs, *s) for s in VPC_SHAPES]
     for case in cases:
         emit(case())
         cs.free_device()
