@@ -21,9 +21,42 @@ prints one JSON line per phase:
                  each deploying firewall >> nat >> chacha20 with 300 rules,
                  ~1.0 M packets per run; checks outputs against the plain
                  version, decryption, launch counts, traces and the fair
-                 interleave; prints Mpkt/s, wire Gbit/s and kernel ms;
+                 interleave; prints Mpkt/s, wire Gbit/s and kernel ms,
+                 and the CUDA kernels and memory operations of one run
+                 with the fused kernel's rule table, key, nonce and NAT
+                 address rebuilt on every dispatch and kept per deployment
+                 (``device_ops_per_run``, from ``torch.profiler``);
   5. encrypt   — ``bytes_to_blocks`` -> ``encrypt`` -> ``blocks_to_bytes``
                  round trip of a 64 MiB buffer;
+  5b. the streaming datapath and the fleet, on the main path's traffic
+                 held in host memory (as packets arrive from a host):
+     stream        — ``ComputeBackend(stream=True, ring_depth=4)`` in turns
+                 with the batch runtime, 5 runs each: outputs ``torch.equal``
+                 to the batch path's (itself held against the plain version),
+                 no batch in flight after a run, ``vpc_datapath`` launches
+                 equal to the dispatch groups, ring slots flat after the
+                 warm-up run, and the same bits with ``ring_depth=1,
+                 max_inflight=1`` (every acquire waits); prints both modes'
+                 Mpkt/s and wire Gbit/s, ``ring.stats()`` and the kernel's
+                 ms a run (with ``--profile``, each mode's device idle
+                 share);
+     inject_stream — a generator of the same batches through
+                 ``inject_stream`` in epochs of the ring's depth under
+                 credits of one WDRR quantum: served equals injected, the
+                 outputs equal the batch path's;
+     fleet         — ``ShardedBackend`` of two streaming compute shards on
+                 ``cuda:0`` (the chain's ChaCha counter in stream mode, a
+                 0-d base a dispatch), 4 epochs of ~1.0 M packets, a
+                 checkpoint directory under a temporary directory, without
+                 and with ``FaultPlan(seed=3).crash(shard=0, epoch=2)``: one
+                 failover, nothing lost, journal replayed, the crash run's
+                 outputs equal the crash-free run's; prints both runs'
+                 Mpkt/s and the failover's wall ms;
+     trace         — ``TraceDriver`` replays the portability trace of
+                 ``benchmarks/bench_scenarios.py`` on the compute,
+                 compute-stream and sharded-compute platforms: schedule
+                 fingerprint ``f1a89120f28456dc`` (``BENCH_scenarios.json``),
+                 every packet served, the same bits on all three;
   6. serve phases — ``Platform(ServeBackend(cfg, ...))`` four times, each
                  model's weights random f32 from a seeded
                  ``torch.Generator`` and freed before the next phase:
@@ -80,8 +113,10 @@ prints one JSON line per phase:
                  a step (its launches at each (R, D) times the raw-launch
                  ms there) and share;
   8. the ``{"kernels": [...]}`` line: per kernel (all eight) its launches
-     on its path, time, plain time, bound and, where one PyTorch call
-     computes the same function, that call's time;
+     on its path (``vpc_datapath``: on the main path and the phases of
+     5b, each counted from 0 just before it, ``launches_by_path``), time,
+     plain time, bound and, where one PyTorch call computes the same
+     function, that call's time;
 and last ``{"ok": true, "device": {...}}``.  Phase 3 also holds the
 flash-attention kernel against its plain version over causal and not,
 G in {1, 2, 4, 8}, hd in {64, 128}, S in {1, 7, 63, 65, 128, 129, 1000,
@@ -154,6 +189,14 @@ BATCHES = 8
 ROWS_A, ROWS_B = 65536, 61440
 TIMED_RUNS = 5
 WIRE_BYTES_PER_PKT = (5 + 16) * 4
+#: the streaming phases: the tenants' weights, the dispatch ring's depth,
+#: and the fleet's epochs with the epoch its shard c0 crashes at
+TENANT_WEIGHTS = {"A": 2.0, "B": 1.0}
+STREAM_RING_DEPTH = 4
+FLEET_EPOCHS = 4
+FLEET_CRASH_EPOCH = 2
+#: the portability trace's schedule fingerprint (BENCH_scenarios.json)
+TRACE_FINGERPRINT = "f1a89120f28456dc"
 #: special-function-unit results (exp2, the core of expf) an SM returns per
 #: clock on compute capability 9.0 (CUDA C++ Programming Guide, arithmetic
 #: instruction throughput)
@@ -709,42 +752,20 @@ def main_path(dev, card: Card | None, profile: bool = False):
     module constants shrunk and ``card=None``); returns the phase record,
     the inputs of the most frequent dispatch (for the kernels line) and the
     kernel's launches in the timed runs."""
-    rules_n, batches, rows_a, rows_b = RULES, BATCHES, ROWS_A, ROWS_B
-    timed_runs = TIMED_RUNS
+    rules_n, batches, timed_runs = RULES, BATCHES, TIMED_RUNS
     import torch
 
     from repro_torch._u32 import arange32, narrow, where32
-    from repro_torch.api import ComputeBackend, Platform, VPC_SPECS, nt
     from repro_torch.api.compute_backend import bucket_size
-    from repro_torch.convert import params_from_numpy
     from repro_torch.kernels.chacha20.kernel import chacha20_xor
     from repro_torch.kernels.vpc_datapath.kernel import (vpc_datapath_cuda,
                                                          vpc_datapath_plain)
     from repro_torch.kernels.vpc_datapath.ops import rule_table
-    from repro_torch.serving.vpc import make_packets, make_rules
 
-    rng = np.random.default_rng(2024)
-    rules = make_rules(rules_n, seed=3, device="cpu")
-    params = params_from_numpy({
-        "firewall": {"rules": tuple(x.numpy() for x in rules)},
-        "nat": {"nat_ip": 0x0A000001},
-        "chacha20": {"key": rng.integers(0, 2 ** 32, 8, dtype=np.uint32),
-                     "nonce": rng.integers(0, 2 ** 32, 3, dtype=np.uint32)},
-    }, dev)
-    # the card is the default device; a CPU rehearsal names its device and
-    # asks for the fused path, which is the default only on CUDA
-    on_cpu = {} if dev.type == "cuda" else {"device": dev, "use_fused": True}
-    backend = ComputeBackend(quantum_bytes=rows_a * WIRE_BYTES_PER_PKT,
-                             **on_cpu)
-    plat = Platform(backend, specs=VPC_SPECS)
-    vpc = nt("firewall") >> nt("nat") >> nt("chacha20")
-    tenants = {"A": (2.0, rows_a), "B": (1.0, rows_b)}
-    deps, traffic = {}, {}
-    for i, (name, (weight, rows)) in enumerate(tenants.items()):
-        deps[name] = plat.tenant(name, weight=weight).deploy(vpc,
-                                                             params=params)
-        traffic[name] = [make_packets(rows, seed=100 * i + b, device=dev)
-                         for b in range(batches)]
+    params, traffic, rng = datapath_setup(dev, host=False)
+    plat, deps = vpc_platform(dev, params)
+    backend = plat.backend
+    tenants = TENANT_WEIGHTS
 
     def one_run():
         for name in tenants:
@@ -812,11 +833,7 @@ def main_path(dev, card: Card | None, profile: bool = False):
     secs = rep.duration_ns / 1e9
     pkts = sum(rep[n].pkts_done for n in tenants)
     wire = sum(rep[n].bytes_done for n in tenants)
-    groups = fair_groups(last, rows_of)
-    shape_counts: dict[int, int] = {}
-    for _, rows in groups:
-        shape_counts[bucket_size(rows)] = shape_counts.get(
-            bucket_size(rows), 0) + 1
+    shape_counts = launch_shapes(last)
     record = {
         "phase": "main_path", "rules": rules_n,
         "packets_per_run": pkts // timed_runs, "timed_runs": timed_runs,
@@ -844,11 +861,434 @@ def main_path(dev, card: Card | None, profile: bool = False):
             kernel_ms[str(b)] * c for b, c in shape_counts.items())
         record["kernel_share_of_run"] = \
             record["kernel_ms_per_run"] / (secs / timed_runs * 1e3)
+    if dev.type == "cuda":
+        record["device_ops_per_run"] = rebuilt_and_cached(backend, one_run)
     if profile:
         record["profile"] = profile_run(one_run)
     common = max(shape_counts, key=lambda b: (shape_counts[b], b))
     return record, bucket_args(rng, common, table, ch, nat, dev), \
         launches_path
+
+
+# ------------------------------------ 4b. streaming, the fleet, the trace ----
+def datapath_setup(dev, host: bool, stream_ctr: bool = False):
+    """The main path's parameters (RULES rules, key and nonce from the same
+    seeds) on ``dev``, and its traffic: tenant -> BATCHES (headers,
+    payload) batches of ROWS_A / ROWS_B packets, and the generator that drew
+    the key and nonce.  ``host`` keeps the packets in host memory, as
+    packets arrive from a host; ``stream_ctr`` runs the ChaCha counter per
+    deployment across batches, its base a 0-d tensor a dispatch
+    (``"stream": True, "scalar_ctr": True``)."""
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.serving.vpc import make_packets, make_rules
+    rng = np.random.default_rng(2024)
+    rules = make_rules(RULES, seed=3, device="cpu")
+    params = params_from_numpy({
+        "firewall": {"rules": tuple(x.numpy() for x in rules)},
+        "nat": {"nat_ip": 0x0A000001},
+        "chacha20": {"key": rng.integers(0, 2 ** 32, 8, dtype=np.uint32),
+                     "nonce": rng.integers(0, 2 ** 32, 3, dtype=np.uint32)},
+    }, dev)
+    if stream_ctr:
+        params["chacha20"].update(stream=True, scalar_ctr=True)
+    where = "cpu" if host else dev
+    traffic = {name: [make_packets(rows, seed=100 * i + b, device=where)
+                      for b in range(BATCHES)]
+               for i, (name, rows) in enumerate((("A", ROWS_A),
+                                                 ("B", ROWS_B)))}
+    return params, traffic, rng
+
+
+def on_device(dev) -> dict:
+    """ComputeBackend keywords: the card is the default device; a CPU
+    rehearsal names its device and asks for the fused path, which is the
+    default only on CUDA."""
+    return {} if dev.type == "cuda" else {"device": dev, "use_fused": True}
+
+
+def vpc_platform(dev, params, **kw):
+    """Tenants A and B (weights 2 : 1) each deploying the fused chain."""
+    from repro_torch.api import ComputeBackend, Platform, VPC_SPECS, nt
+    backend = ComputeBackend(quantum_bytes=ROWS_A * WIRE_BYTES_PER_PKT,
+                             **on_device(dev), **kw)
+    plat = Platform(backend, specs=VPC_SPECS)
+    vpc = nt("firewall") >> nt("nat") >> nt("chacha20")
+    deps = {name: plat.tenant(name, weight=w).deploy(vpc, params=params)
+            for name, w in TENANT_WEIGHTS.items()}
+    return plat, deps
+
+
+def same_outputs(a: list, b: list) -> bool:
+    """Two output lists with equal allow, headers and payload, bit for
+    bit."""
+    import torch
+    return len(a) == len(b) and all(
+        torch.equal(x[k], y[k]) for x, y in zip(a, b)
+        for k in ("allow", "headers", "payload"))
+
+
+def outputs_by_tenant(plat) -> dict:
+    rep = plat.report()
+    return {name: list(rep[name].outputs) for name in TENANT_WEIGHTS}
+
+
+def launch_shapes(log) -> dict[int, int]:
+    """Kernel launches of one run at each bucket, from its dispatch log."""
+    from repro_torch.api.compute_backend import bucket_size
+    counts: dict[int, int] = {}
+    for _, rows in fair_groups(log, lambda c: int(c) // WIRE_BYTES_PER_PKT):
+        counts[bucket_size(rows)] = counts.get(bucket_size(rows), 0) + 1
+    return counts
+
+
+def stream_path(dev, card: Card | None, profile: bool = False):
+    """``ComputeBackend(stream=True)`` against the batch runtime on the
+    main path's traffic held in host memory, in turns in one process.
+    Returns the record, the batch runtime's first-run outputs (the
+    reference of the later phases) and the stream runs' launches."""
+    from repro_torch._u32 import arange32, narrow
+    from repro_torch.kernels.vpc_datapath.kernel import (vpc_datapath_cuda,
+                                                         vpc_datapath_plain)
+    from repro_torch.kernels.vpc_datapath.ops import rule_table
+    params, traffic, _ = datapath_setup(dev, host=True)
+    plats = {"batch": vpc_platform(dev, params),
+             "stream": vpc_platform(dev, params, stream=True,
+                                    ring_depth=STREAM_RING_DEPTH)}
+    wall: dict[str, list] = {"batch": [], "stream": []}
+
+    def one_run(mode):
+        plat, deps = plats[mode]
+        t0 = time.perf_counter()
+        for name, batches in traffic.items():
+            for h, p in batches:
+                deps[name].inject(headers=h, payload=p)
+        plat.run()
+        wall[mode].append(time.perf_counter() - t0)
+        expect(plat.backend.inflight_batches == 0,
+               f"{mode}: {plat.backend.inflight_batches} batches in flight "
+               "after run()")
+
+    sbe = plats["stream"][0].backend
+    for mode in plats:                       # warm-up (builds nothing new)
+        one_run(mode)
+    ref = outputs_by_tenant(plats["batch"][0])
+    got = outputs_by_tenant(plats["stream"][0])
+    table = rule_table(params["firewall"]["rules"], dev)
+    ch, nat = params["chacha20"], params["nat"]["nat_ip"].reshape(1)
+    for name, batches in traffic.items():
+        expect(same_outputs(ref[name], got[name]),
+               f"{name}: stream outputs differ from the batch path's")
+        for b, (h, p) in enumerate(batches):
+            want = vpc_datapath_plain(
+                h.to(dev), p.to(dev), narrow(arange32(1, h.shape[0], dev)),
+                table,
+                ch["key"], ch["nonce"], nat, 0x9e3779b9)
+            expect(same_triple((ref[name][b]["allow"], ref[name][b]["headers"],
+                                ref[name][b]["payload"]), want),
+                   f"{name} batch {b}: batch path differs from plain")
+    allocs = sbe.ring.stats()["allocs"]
+    for plat, _ in plats.values():
+        plat.backend.reset_window()
+    for mode in wall:
+        wall[mode].clear()
+    launches = groups = 0
+    for _ in range(TIMED_RUNS):              # in turns: batch, stream
+        one_run("batch")
+        sbe.dispatch_log.clear()
+        vpc_datapath_cuda.launches = 0
+        one_run("stream")
+        launches += vpc_datapath_cuda.launches
+        groups += len(fair_groups(sbe.dispatch_log,
+                                  lambda c: int(c) // WIRE_BYTES_PER_PKT))
+    outs = {mode: outputs_by_tenant(plat) for mode, (plat, _) in plats.items()}
+    for name in traffic:
+        expect(same_outputs(outs["batch"][name], outs["stream"][name]),
+               f"{name}: timed stream runs differ from the batch path's")
+        expect(same_outputs(outs["stream"][name][:BATCHES], ref[name]),
+               f"{name}: a stream run differs from the warm-up's outputs")
+    ring = sbe.ring.stats()
+    expect(ring["allocs"] == allocs,
+           f"ring slots grew after warm-up: {allocs} -> {ring['allocs']}")
+    if dev.type == "cuda":
+        expect(launches == groups,
+               f"stream runs launched vpc_datapath {launches}x for "
+               f"{groups} dispatch groups")
+
+    # every acquire waits: one slot in flight, a ring of one
+    one, one_deps = vpc_platform(dev, params, stream=True, ring_depth=1,
+                                 max_inflight=1)
+    for name, batches in traffic.items():
+        for h, p in batches:
+            one_deps[name].inject(headers=h, payload=p)
+    one.run()
+    one_out = outputs_by_tenant(one)
+    for name in traffic:
+        expect(same_outputs(one_out[name], ref[name]),
+               f"{name}: ring_depth=1, max_inflight=1 differs")
+    del one_out
+
+    record = {"phase": "stream", "rules": RULES,
+              "packets": "host memory", "timed_runs": TIMED_RUNS,
+              "ring_depth": STREAM_RING_DEPTH,
+              "max_inflight": sbe.max_inflight, "ring": ring,
+              "ring_depth_1": one.backend.ring.stats(),
+              "launches": launches, "dispatch_groups": groups,
+              "bit_equal_to_batch": True}
+    for mode, (plat, _) in plats.items():
+        rep = plat.report()
+        secs = rep.duration_ns / 1e9
+        pkts = sum(rep[n].pkts_done for n in TENANT_WEIGHTS)
+        wire = sum(rep[n].bytes_done for n in TENANT_WEIGHTS)
+        record[mode] = {
+            "packets_per_run": pkts // TIMED_RUNS, "seconds": secs,
+            "mpkt_per_s": pkts / secs / 1e6,
+            "wire_gbit_per_s": wire * 8 / secs / 1e9,
+            "wall_ms_per_run": [t * 1e3 for t in wall[mode]],
+            "mpkt_per_s_with_inject": pkts / sum(wall[mode]) / 1e6}
+    if card is not None:
+        shapes = launch_shapes(sbe.dispatch_log)
+        rng = np.random.default_rng(7)
+        kernel_ms = {b: cuda_ms(raw_vpc(bucket_args(rng, b, table, ch, nat,
+                                                    dev)), 100)
+                     for b in shapes}
+        record["buckets_per_run"] = {str(b): c for b, c in sorted(
+            shapes.items())}
+        record["kernel_ms_per_launch"] = {str(b): ms for b, ms in sorted(
+            kernel_ms.items())}
+        record["kernel_ms_per_run"] = sum(kernel_ms[b] * c
+                                          for b, c in shapes.items())
+    if profile:
+        record["profile"] = {
+            mode: profile_run(lambda m=mode: one_run(m),
+                              table=f"chip_smoke_profile_{mode}.txt")
+            for mode in plats}
+    return record, ref, launches
+
+
+def inject_stream_path(dev, ref: dict):
+    """``inject_stream`` over a generator of the same host-resident
+    batches, tenants interleaved as they arrive, in epochs of the ring's
+    depth under a credit window of one WDRR quantum."""
+    from repro_torch.kernels.vpc_datapath.kernel import vpc_datapath_cuda
+    params, traffic, _ = datapath_setup(dev, host=True)
+    plat, deps = vpc_platform(dev, params, stream=True,
+                              ring_depth=STREAM_RING_DEPTH)
+    be = plat.backend
+    quantum = ROWS_A * WIRE_BYTES_PER_PKT
+
+    def source():
+        for b in range(BATCHES):
+            for name in traffic:
+                h, p = traffic[name][b]
+                yield name, deps[name].uid, {"headers": h, "payload": p}
+
+    injected = BATCHES * len(traffic)
+    served = be.inject_stream(source(), epoch_cost=quantum)   # warm-up
+    expect(served == injected, f"warm-up served {served} of {injected}")
+    be.reset_window()
+    epochs0, disp0 = be.stats["stream_epochs"], be.stats["dispatches"]
+    vpc_datapath_cuda.launches = 0
+    t0 = time.perf_counter()
+    served = be.inject_stream(source(), epoch_cost=quantum)
+    secs_wall = time.perf_counter() - t0
+    launches = vpc_datapath_cuda.launches
+    expect(served == injected, f"served {served} of {injected} injected")
+    expect(be.inflight_batches == 0 and be.sched.pending() == 0,
+           "inject_stream left work in flight or queued")
+    got = outputs_by_tenant(plat)
+    for name in traffic:
+        expect(same_outputs(got[name], ref[name]),
+               f"{name}: inject_stream outputs differ from the batch path's")
+    dispatches = be.stats["dispatches"] - disp0
+    if dev.type == "cuda":
+        expect(launches == dispatches,
+               f"inject_stream launched {launches}x for {dispatches} "
+               "dispatches")
+    rep = plat.report()
+    secs = rep.duration_ns / 1e9
+    pkts = sum(rep[n].pkts_done for n in TENANT_WEIGHTS)
+    return {"phase": "inject_stream", "injected": injected,
+            "served": served, "epoch_cost_bytes": quantum,
+            "epochs": be.stats["stream_epochs"] - epochs0,
+            "dispatches": dispatches, "launches": launches,
+            "packets": pkts, "seconds": secs, "mpkt_per_s": pkts / secs / 1e6,
+            "wire_gbit_per_s": sum(rep[n].bytes_done for n in TENANT_WEIGHTS)
+            * 8 / secs / 1e9,
+            "mpkt_per_s_with_inject": pkts / secs_wall / 1e6,
+            "ring": be.ring.stats(), "bit_equal_to_batch": True}, launches
+
+
+def fleet_run(dev, params, traffic, crash: bool, ckpt: str):
+    """Two streaming shards behind a ShardedBackend (A pinned to c0, B to
+    c1), FLEET_EPOCHS epochs of the main path's traffic, with or without a
+    crash of c0 at FLEET_CRASH_EPOCH; checkpoints the stream counters
+    every epoch."""
+    from repro_torch.api import (ComputeBackend, Platform, ShardedBackend,
+                                 VPC_SPECS, nt)
+    from repro_torch.faults import FaultPlan
+    from repro_torch.kernels.vpc_datapath.kernel import vpc_datapath_cuda
+    shards = [ComputeBackend(name=f"c{i}", stream=True,
+                             ring_depth=STREAM_RING_DEPTH,
+                             quantum_bytes=ROWS_A * WIRE_BYTES_PER_PKT,
+                             **on_device(dev)) for i in range(2)]
+    plan = FaultPlan(seed=3).crash(shard=0, epoch=FLEET_CRASH_EPOCH) \
+        if crash else None
+    sb = ShardedBackend(shards, auto_rebalance=False, fault_plan=plan,
+                        health_threshold=1, checkpoint=ckpt)
+    plat = Platform(sb, specs=VPC_SPECS)
+    vpc = nt("firewall") >> nt("nat") >> nt("chacha20")
+    deps = {name: plat.tenant(name, weight=w).deploy(vpc, shard=i,
+                                                     params=params)
+            for i, (name, w) in enumerate(TENANT_WEIGHTS.items())}
+    failover_ms = []
+    failover = sb._failover
+
+    def timed_failover(i, reason="probe-miss"):
+        t0 = time.perf_counter()
+        failover(i, reason=reason)
+        failover_ms.append((time.perf_counter() - t0) * 1e3)
+
+    sb._failover = timed_failover
+    vpc_datapath_cuda.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(FLEET_EPOCHS):
+        for name, batches in traffic.items():
+            for h, p in batches:
+                deps[name].inject(headers=h, payload=p)
+        plat.run()
+    secs = time.perf_counter() - t0
+    launches = vpc_datapath_cuda.launches
+    for s in sb.shards:
+        expect(s.inflight_batches == 0, f"{s.name}: batches left in flight")
+    rep = plat.report()
+    return rep, secs, launches, failover_ms
+
+
+def fleet_path(dev):
+    """The fleet with stream-mode ChaCha counters: after a warm-up run, a
+    crash-free run and a run where c0 crashes; the crash run's outputs must
+    equal the crash-free run's bit for bit after failover, checkpoint
+    restore and journal replay.  Returns the record and the two timed
+    runs' launches."""
+    import tempfile
+    params, traffic, _ = datapath_setup(dev, host=True,
+                                         stream_ctr=True)
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        fleet_run(dev, params, traffic, False, f"{tmp}/warm_up")
+        for crash in (False, True):
+            runs[crash] = fleet_run(dev, params, traffic, crash,
+                                    f"{tmp}/ckpt_{int(crash)}")
+    (ref, ref_s, ref_l, _), (rep, secs, launches, fo_ms) = \
+        runs[False], runs[True]
+    n_pkts = FLEET_EPOCHS * BATCHES * (ROWS_A + ROWS_B)
+    for name in TENANT_WEIGHTS:
+        expect(same_outputs(ref[name].outputs, rep[name].outputs),
+               f"{name}: the crash run's outputs differ from the crash-free "
+               "run's")
+        expect(len(rep[name].outputs) == FLEET_EPOCHS * BATCHES,
+               f"{name}: {len(rep[name].outputs)} outputs")
+    fos = rep.extra["failovers"]
+    expect(len(fos) == 1 and fos[0]["shard"] == "c0" and fos[0]["lost"] == [],
+           f"failovers {fos}")
+    expect(rep.extra["replayed"] >= 1 and
+           rep.extra["lost"]["deployments"] == 0,
+           f"replayed {rep.extra['replayed']}, lost {rep.extra['lost']}")
+    expect(not ref.extra["failovers"], "the crash-free run failed over")
+    expect(len(fo_ms) == 1, f"{len(fo_ms)} failovers timed")
+    return {"phase": "fleet", "shards": 2, "device": str(dev),
+            "epochs": FLEET_EPOCHS, "crash_epoch": FLEET_CRASH_EPOCH,
+            "packets_per_run": n_pkts, "stream_ctr": "scalar_ctr",
+            "crash_free": {"seconds": ref_s,
+                           "mpkt_per_s": n_pkts / ref_s / 1e6,
+                           "launches": ref_l},
+            "crash": {"seconds": secs, "mpkt_per_s": n_pkts / secs / 1e6,
+                      "launches": launches},
+            "failover_ms": fo_ms[0], "failovers": fos,
+            "replayed": rep.extra["replayed"], "lost": rep.extra["lost"],
+            "routes": {str(k): v for k, v in rep.extra["routes"].items()},
+            "bit_equal_to_crash_free": True}, ref_l + launches
+
+
+def trace_path(dev):
+    """``TraceDriver`` replays ``benchmarks/bench_scenarios.py``'s
+    portability trace (smoke size) on the compute, compute-stream and
+    sharded-compute platforms; each gives the recorded schedule
+    fingerprint, serves every packet, and the three give the same bits."""
+    from repro_torch.api import ComputeBackend, Platform, VPC_SPECS
+    from repro_torch.kernels.vpc_datapath.kernel import vpc_datapath_cuda
+    from repro_torch.workloads import TraceDriver, constant, generate
+    trace = generate("portability", seed=5, epochs=6, n_tenants=6,
+                     arrival=constant(1.0), churn_frac=0.25)
+    kw = on_device(dev)
+    platforms = {
+        "compute": lambda: Platform(ComputeBackend(**kw), specs=VPC_SPECS),
+        "compute_stream": lambda: Platform(ComputeBackend(stream=True, **kw),
+                                           specs=VPC_SPECS),
+        "sharded_compute": lambda: Platform(
+            [ComputeBackend(name="c0", **kw),
+             ComputeBackend(name="c1", stream=True, **kw)], specs=VPC_SPECS),
+    }
+    record, outs, total = {"phase": "trace",
+                           "trace_fingerprint": trace.fingerprint(),
+                           "offered_pkts": trace.total_pkts}, {}, 0
+    for kind, make in platforms.items():
+        vpc_datapath_cuda.launches = 0
+        t0 = time.perf_counter()
+        res = TraceDriver(make()).drive(trace)
+        secs = time.perf_counter() - t0
+        launches = vpc_datapath_cuda.launches
+        total += launches
+        expect(res.backend == kind, f"{kind}: driven as {res.backend}")
+        expect(res.schedule_fingerprint == TRACE_FINGERPRINT,
+               f"{kind}: schedule fingerprint {res.schedule_fingerprint}")
+        expect(sum(res.served.values()) == sum(res.injected.values())
+               == trace.total_pkts, f"{kind}: served {res.served}")
+        outs[kind] = {n: tr.outputs for n, tr in res.report.tenants.items()}
+        record[kind] = {"schedule_fingerprint": res.schedule_fingerprint,
+                        "served": sum(res.served.values()),
+                        "seconds": secs, "launches": launches}
+    for kind in ("compute_stream", "sharded_compute"):
+        for name, o in outs["compute"].items():
+            expect(same_outputs(o, outs[kind][name]),
+                   f"{kind}: {name}'s outputs differ from compute's")
+    record["bit_equal_across_platforms"] = True
+    return record, total
+
+
+def device_ops(one_run) -> dict:
+    """CUDA kernels and memory operations (copies, fills) one run of a
+    path puts on the card, from ``torch.profiler``'s device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        one_run()
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    mem = sum(1 for e in ev if e.name.startswith(("Memcpy", "Memset")))
+    return {"kernels": len(ev) - mem, "memory_ops": mem}
+
+
+class _Forget(dict):
+    """A cache that keeps nothing: every dispatch rebuilds."""
+
+    def __setitem__(self, key, value):
+        pass
+
+
+def rebuilt_and_cached(backend, one_run) -> dict:
+    """The device operations of one main-path run with the fused kernel's
+    fixed inputs (rule table, key, nonce, NAT address) rebuilt on every
+    dispatch, as before they were kept per deployment and device, and as
+    they are now."""
+    progs = [d.fused for d in backend.deployments.values()]
+    kept = [p.prepared for p in progs]
+    for p in progs:
+        p.prepared = _Forget()
+    rebuilt = device_ops(one_run)
+    for p, k in zip(progs, kept):
+        p.prepared = k
+    return {"rebuilt_each_dispatch": rebuilt, "kept": device_ops(one_run)}
 
 
 def profile_run(one_run, table: str = "chip_smoke_profile.txt") -> dict:
@@ -905,7 +1345,7 @@ def vpc_bound(card: Card, n: int, r: int, allowed: int):
     return (*card.bound(nbytes, ops), nbytes, ops)
 
 
-def vpc_line(card: Card, args, launches: int) -> dict:
+def vpc_line(card: Card, args, launches: dict) -> dict:
     from repro_torch.kernels.vpc_datapath.kernel import (vpc_datapath_cuda,
                                                          vpc_datapath_plain)
     n, r = args["headers"].shape[0], args["rule_table"].shape[0]
@@ -918,7 +1358,8 @@ def vpc_line(card: Card, args, launches: int) -> dict:
     return {"name": "vpc_datapath", "route": "cuda",
             "source": "src/repro_torch/csrc/vpc_datapath.cu",
             "replaces": "src/repro/kernels/vpc_datapath/kernel.py:89",
-            "path": "main", "launches": launches,
+            "path": ", ".join(launches),
+            "launches": sum(launches.values()), "launches_by_path": launches,
             "shape": {"N": n, "R": r, "allowed": allowed},
             "bit_exact": diff == 0, "max_abs_err": diff,
             "ms": cuda_ms(raw_vpc(args), 200),
@@ -2456,10 +2897,23 @@ def main() -> int:
 
     record, args, launches = main_path(dev, card, profile=profile)
     emit(record)
-    vpc = vpc_line(card, args, launches)
+    vpc_launches = {"main": launches}
 
     record, chacha = encrypt_path(dev, card)
     emit(record)
+    free_device()
+
+    record, ref, vpc_launches["stream"] = stream_path(dev, card,
+                                                      profile=profile)
+    emit(record)
+    record, vpc_launches["inject_stream"] = inject_stream_path(dev, ref)
+    emit(record)
+    del ref
+    record, vpc_launches["fleet"] = fleet_path(dev)
+    emit(record)
+    record, vpc_launches["trace"] = trace_path(dev)
+    emit(record)
+    vpc = vpc_line(card, args, vpc_launches)
     free_device()
 
     lines = {}

@@ -3,10 +3,12 @@
 Opt-in dynamic checks of the conservation laws the scheduling/accounting
 core promises, evaluated at epoch boundaries when ``REPRO_SANITIZE=1`` is
 set in the environment.  In the port the hooks are wired into
-:meth:`repro_torch.api.compute_backend.ComputeBackend.run` (end of drain)
-and :meth:`repro_torch.serving.engine.Engine.step`; the sNIC model, the
-sim and sharded backends carry the other hooks in the JAX package and are
-not ported yet, so their rules below are kept for when they are.
+:meth:`repro_torch.api.compute_backend.ComputeBackend.run` and
+``inject_stream`` (end of drain),
+:meth:`repro_torch.api.sharded_backend.ShardedBackend._global_epoch` and
+:meth:`repro_torch.serving.engine.Engine.step`; the sNIC model and the sim
+backend carry the other hooks in the JAX package and are not ported yet,
+so their rules below are kept for when they are.
 
 Rules (each violation is a :class:`~repro_torch.analysis.diagnostics.Diagnostic`
 wrapped in :class:`InvariantViolation`):

@@ -40,10 +40,27 @@ to the host runtime):
     (where the JAX package donated buffers to XLA), so a caller's tensors
     are never aliased: inject the same tensors twice and both runs see
     identical bits.
-
-The streaming dispatch ring (``stream=True``, ``run(stream=True)``,
-``inject_stream``) is the next slice of the port (ROADMAP Queue 1 #7); here
-it raises ``NotImplementedError``.
+  - **Streaming engine** (``run(stream=True)`` / :meth:`inject_stream` /
+    ``ComputeBackend(stream=True)``): the pipelined alternative to the
+    batch-synchronous drain.  Batches flow through a **dispatch ring** of
+    pre-allocated, reusable staging slots per (bucket, signature): on a
+    CUDA device a slot is a set of pinned host tensors, so steady state
+    fills ring slots instead of materializing fresh buffers, and each
+    slot's ``non_blocking`` host->device copy runs on a copy stream of its
+    own, overlapping the previous group's still-running kernel; the
+    compute stream waits on an event recorded after the copy.  The single
+    end-of-run sync becomes a bounded in-flight window (``max_inflight``):
+    a group's completion event is waited on only when the ring wraps, and
+    only then is its slot handed out again.  With a device *list*,
+    dispatch groups round-robin across the devices of one shard;
+    stream-mode ChaCha stays bit-exact because per-packet counters are
+    assigned when an item enters the ring (fair drain order,
+    deterministic), never at completion time.  The throughput window for
+    a streaming run is first-dispatch -> last-drain.  ``inject_stream``
+    services a continuous inject source epoch-by-epoch through the
+    scheduler's stream-credit window
+    (:meth:`repro_torch.core.sched.FairScheduler.stream_window`) instead
+    of draining a static backlog.
 
 Fork/join semantics mirror the sync buffer (§4.2): every branch of a stage
 reads the stage's input state; the join merges each branch's declared
@@ -56,8 +73,9 @@ denied packets keep their original header and leave with a zeroed payload
 from __future__ import annotations
 
 import time
+from collections import deque
 from dataclasses import dataclass, field
-from typing import Callable, Iterable
+from typing import Callable, Iterable, Iterator
 
 import numpy as np
 import torch
@@ -68,7 +86,8 @@ from repro_torch.analysis import invariants as _sanitize
 from repro_torch.core.nt import GBPS, NTDag, NTSpec
 from repro_torch.core.sched import FairScheduler, SchedConfig
 from repro_torch.kernels.chacha20.ops import smem_tile_bytes as _chacha_tile
-from repro_torch.kernels.vpc_datapath import vpc_datapath
+from repro_torch.kernels.vpc_datapath.ops import (datapath_args,
+                                                  vpc_datapath_prepared)
 from repro_torch.kernels.vpc_datapath.ops import smem_tile_bytes as _vpc_tile
 from repro_torch.serving.vpc import chacha20_xor, firewall, nat_rewrite
 
@@ -82,9 +101,6 @@ WIRE_FIELDS = ("headers", "payload")
 
 #: smallest pad bucket; buckets are _MIN_BUCKET * 2**k
 _MIN_BUCKET = 8
-
-_STREAM_LATER = ("the streaming dispatch ring is not ported yet: "
-                 "ROADMAP Queue 1 #7")
 
 
 def bucket_size(n: int) -> int:
@@ -109,9 +125,9 @@ class ComputeNT:
     optionally synthesizes per-packet state fields at inject time (e.g. the
     ChaCha keystream counter) so that batch coalescing and bucket padding
     cannot change the NT's output for any real packet; it runs with the
-    backend's device as PyTorch's default device.  ``prep_fields`` names
-    them, so inject can skip ``prep`` when the caller already supplied every
-    one.
+    device of the batch's packets as PyTorch's default device.
+    ``prep_fields`` names them, so inject can skip ``prep`` when the caller
+    already supplied every one.
 
     The remaining fields are admission-verifier metadata
     (:mod:`repro_torch.analysis.verifier`), all optional: ``reads`` declares
@@ -212,9 +228,11 @@ VPC_SPECS: dict[str, NTSpec] = {
 def _vpc_fused_factory(params: dict) -> Callable | None:
     """Fused launcher for the canonical VPC chain, or None if the deployment
     params cannot feed the fused kernel (missing rules/key/nonce).  The
-    deploy-time params are only a capability probe — every param is re-read
-    from the runtime params argument, the same binding the composed path
-    gives every NT."""
+    deploy-time params are only a capability probe: the kernel's fixed
+    inputs (rule table, key, nonce, NAT address) are built from the
+    runtime params argument on the first dispatch to each device and kept
+    in ``program.prepared`` for every later one, so a dispatch launches the
+    kernel and nothing else."""
     try:
         params["firewall"]["rules"]
         params["chacha20"]["key"]
@@ -224,14 +242,23 @@ def _vpc_fused_factory(params: dict) -> Callable | None:
 
     def program(state: dict, params: dict) -> dict:
         ch = params["chacha20"]
-        allow, hout, pout = vpc_datapath(
-            state["headers"], state["payload"], params["firewall"]["rules"],
-            ch["key"], ch["nonce"],
-            nat_ip=params.get("nat", {}).get("nat_ip", 0x0A000001),
+        dev = state["headers"].device
+        args = program.prepared.get(dev)
+        if args is None:
+            args = datapath_args(
+                params["firewall"]["rules"], ch["key"], ch["nonce"],
+                params.get("nat", {}).get("nat_ip", 0x0A000001), dev)
+            program.prepared[dev] = args
+        allow, hout, pout = vpc_datapath_prepared(
+            state["headers"], state["payload"], args,
+            # ctr0 is a stream-mode counter base (a 0-d tensor on the
+            # device; the wrapper expands it there)
             counter0=state.get("ctr0", ch.get("counter0", 1)),
             ctr=state.get("ctr"))
         return {**state, "allow": allow, "headers": hout, "payload": pout}
 
+    #: device -> the kernel's fixed inputs, built on the first dispatch there
+    program.prepared = {}
     return program
 
 
@@ -298,6 +325,98 @@ def _signature(batch: dict):
         else:                      # non-array field: never coalesced
             items.append((k, "scalar", id(v)))
     return tuple(items)
+
+
+def _batch_device(batch: dict, default: torch.device) -> torch.device:
+    """Where a batch's packets live (its first tensor's device): the
+    per-packet state synthesized for it (the ChaCha ``ctr``) is made there
+    too, so host-resident packets get host-resident counters."""
+    for v in batch.values():
+        if isinstance(v, torch.Tensor):
+            return v.device
+    return default
+
+
+# ------------------------------------------------------------ dispatch ring --
+def _host_buffer(shape: tuple, dtype: torch.dtype, pin: bool) -> torch.Tensor:
+    """A zeroed host tensor; ``pin`` asks for page-locked memory, which a
+    ``non_blocking`` copy to a CUDA device needs to run asynchronously.
+    Pageable memory in its place would make every copy synchronous, so a
+    buffer that could not be pinned is an error, not a quiet fallback."""
+    buf = torch.zeros(shape, dtype=dtype, pin_memory=pin)
+    if pin and not buf.is_pinned():
+        raise RuntimeError("the dispatch ring could not pin a staging buffer")
+    return buf
+
+
+@dataclass
+class _RingSlot:
+    """One pre-allocated staging slot: host tensors sized to a bucket, one
+    per tensor field of the dispatch signature (plus the ``valid`` row
+    mask), pinned when the slot feeds a CUDA device.  The slot is filled in
+    place, copied to the device, and returned to the ring's free list only
+    when its in-flight entry retires, after the event that follows its
+    copy and its program: steady state allocates nothing, and a slot is
+    never refilled while a copy may still read it."""
+    key: tuple
+    staging: dict[str, torch.Tensor]
+
+
+class DispatchRing:
+    """Pool of reusable staging slots keyed by (bucket, tensor signature,
+    pinned or not).
+
+    ``allocs`` counts real slot materializations; once the pipeline warms
+    up (at most ``max_inflight + 1`` slots per key are ever live) every
+    acquire is a reuse, the zero-steady-state-allocation property the
+    streaming tests assert.  A field's trailing shape ``None`` marks a 0-d
+    field (a stream-mode counter base), staged as one 0-d tensor."""
+
+    def __init__(self, depth: int = 4):
+        self.depth = int(depth)
+        self._free: dict[tuple, list[_RingSlot]] = {}
+        self.allocs = 0
+        self.reuses = 0
+
+    def acquire(self, bucket: int,
+                fields: list[tuple[str, tuple[int, ...] | None,
+                                   torch.dtype]],
+                pin: bool = False) -> _RingSlot:
+        key = (bucket, tuple((k, trail, str(dt)) for k, trail, dt in fields),
+               pin)
+        free = self._free.get(key)
+        if free:
+            self.reuses += 1
+            return free.pop()
+        self.allocs += 1
+        staging = {k: _host_buffer(() if trail is None else (bucket,) + trail,
+                                   dt, pin)
+                   for k, trail, dt in fields}
+        staging["valid"] = _host_buffer((bucket,), torch.bool, pin)
+        return _RingSlot(key, staging)
+
+    def release(self, slot: _RingSlot) -> None:
+        self._free.setdefault(slot.key, []).append(slot)
+
+    def stats(self) -> dict:
+        return {"allocs": self.allocs, "reuses": self.reuses,
+                "depth": self.depth,
+                "free_slots": sum(len(v) for v in self._free.values())}
+
+
+@dataclass
+class _InFlight:
+    """A launched-but-undrained dispatch group: the ring entry the bounded
+    in-flight window retires when the ring wraps.  ``done`` is the CUDA
+    event recorded after its program (None on the CPU, where the program
+    has finished when it returns)."""
+    dep: _Deployment
+    orders: list[int]
+    sizes: list[int]
+    out: dict
+    slot: _RingSlot | None
+    enq: list[tuple[str, float]]          # (tenant, enqueued_at) per batch
+    done: torch.cuda.Event | None = None
 
 
 def _fill_bucket(arrays, b: int, device) -> torch.Tensor:
@@ -371,16 +490,20 @@ class ComputeBackend:
                  use_fused: bool | None = None,
                  quantum_bytes: float = 8 * 1500.0,
                  name: str | None = None, device=None,
-                 capacity_gbps: float = 100.0, stream: bool = False):
+                 capacity_gbps: float = 100.0, stream: bool = False,
+                 ring_depth: int = 4, max_inflight: int | None = None):
         """``device``: where batches run — ``None`` is ``cuda:0`` (and raises
         where no GPU is present: pass ``device="cpu"`` for the plain
         PyTorch path on the CPU), an int is a CUDA ordinal, or a string /
         ``torch.device``.  A *list* of devices round-robins this shard's
         dispatch groups across them.  ``capacity_gbps`` is the nominal
         wire capacity a placer provisions against.  ``use_fused`` defaults
-        to True on a CUDA device."""
-        if stream:
-            raise NotImplementedError(_STREAM_LATER)
+        to True on a CUDA device.
+
+        ``stream=True`` makes ``run()`` default to the pipelined streaming
+        engine; ``ring_depth`` sizes the dispatch ring's staging pool and
+        ``max_inflight`` (default: ``ring_depth``) bounds how many launched
+        dispatch groups may be awaiting their drain at once."""
         if name is not None:
             self.name = name
         devs = list(device) if isinstance(device, (list, tuple)) \
@@ -389,6 +512,20 @@ class ComputeBackend:
         self.device = self.devices[0]
         self._rr = 0                       # round-robin device cursor
         self.capacity_gbps = capacity_gbps
+        self.stream = stream
+        self.ring_depth = max(1, int(ring_depth))
+        self.max_inflight = self.ring_depth if max_inflight is None \
+            else max(1, int(max_inflight))
+        self.ring = DispatchRing(depth=self.ring_depth)
+        self._inflight: deque[_InFlight] = deque()
+        #: one copy stream per CUDA device, made on its first stream dispatch
+        self._copy_streams: dict[torch.device, torch.cuda.Stream] = {}
+        #: batches dispatched into the ring but not yet drained (an I-BATCH
+        #: conservation term: injected == completed + queued + shed +
+        #: in_flight); nonzero only while the streaming engine is feeding
+        self.inflight_batches = 0
+        self._t_first: float | None = None   # streaming window: first launch
+        self._t_last = 0.0                   # ... -> last drain
         self.nts = dict(BUILTIN_COMPUTE_NTS)
         self.nts.update(nts or {})
         self.use_fused = (self.device.type == "cuda"
@@ -409,7 +546,8 @@ class ComputeBackend:
         self._lat_s: dict[str, list[float]] = {}
         self._elapsed_s = 0.0
         self.stats = {"traces": 0, "dispatches": 0, "fused_dispatches": 0,
-                      "batches": 0, "coalesced_batches": 0, "runs": 0}
+                      "batches": 0, "coalesced_batches": 0, "runs": 0,
+                      "stream_batches": 0, "stream_epochs": 0}
         #: batches fully dispatched + synced (I-BATCH conservation: this +
         #: sched.pending() + shed_batches == stats["batches"])
         self.completed_batches = 0
@@ -573,7 +711,7 @@ class ComputeBackend:
                     if nt.prep_fields and all(f in batch
                                               for f in nt.prep_fields):
                         continue          # caller supplied them all
-                    with self.device:
+                    with _batch_device(batch, self.device):
                         fields_ = nt.prep(n, dep.params.get(name, {}))
                     for k, v in fields_.items():
                         batch.setdefault(k, v)
@@ -583,9 +721,6 @@ class ComputeBackend:
         self.sched.submit(tenant, (self._order, dag_uid, batch),
                           cost=float(wire) if wire else float(max(n, 1)))
         self.stats["batches"] += 1
-
-    def inject_stream(self, *_a, **_kw) -> int:
-        raise NotImplementedError(_STREAM_LATER)
 
     def _stream_fields(self, dep: _Deployment, batch: dict) -> dict:
         """Dispatch-time synthesis for stream-mode NTs: advance the
@@ -607,7 +742,7 @@ class ComputeBackend:
                     if nt.prep_fields and all(f in batch
                                               for f in nt.prep_fields):
                         continue          # caller supplied them all
-                    with self.device:
+                    with _batch_device(batch, self.device):
                         fields, dep.nt_state[name] = nt.stream(
                             n, p, dep.nt_state.get(name, {}))
                     out.update(fields)
@@ -690,13 +825,20 @@ class ComputeBackend:
             self.stats["fused_dispatches"] += 1
         return out
 
-    def run(self, stream: bool = False, **_kw) -> None:
-        """Service the tenant queues: drain in WDRR order, dispatch every
-        batch asynchronously, synchronize with the device ONCE."""
-        if stream:
-            raise NotImplementedError(_STREAM_LATER)
+    def run(self, stream: bool | None = None, **_kw) -> None:
+        """Service the tenant queues.  Batch mode (the default): drain in
+        WDRR order, dispatch every batch asynchronously, synchronize with
+        the device ONCE.  Stream mode (``stream=True``, or a backend built
+        with ``stream=True``): the same fair order flows through the
+        pipelined dispatch ring with a bounded in-flight window instead of
+        a single end-of-run sync."""
+        if stream is None:
+            stream = self.stream
         if self.faults is not None and not self.faults.serving():
             return          # crashed/hung: queues keep their pending work
+        if stream:
+            self._run_stream()
+            return
         t0 = time.perf_counter()
         # fair service order: the whole pending set, interleaved by weight
         groups, enq_at = self._fair_groups(self.sched.drain())
@@ -748,12 +890,183 @@ class ComputeBackend:
         if _sanitize.enabled():           # end-of-drain conservation audit
             _sanitize.check_compute(self, self.name)
 
+    # ---------------------------------------------------- streaming engine --
+    def _ship(self, slot: _RingSlot, dev: torch.device) -> dict:
+        """Copy a filled slot to ``dev``.  On a CUDA device the copies run
+        ``non_blocking`` from the pinned slot on the device's copy stream,
+        into buffers allocated there and marked as used by the compute
+        stream (so the caching allocator cannot hand them out again while
+        the program still reads them); the compute stream waits on an
+        event recorded after the copies.  On the CPU it is a plain copy."""
+        if dev.type != "cuda":
+            return {k: v.clone() for k, v in slot.staging.items()}
+        copy = self._copy_streams.get(dev)
+        if copy is None:
+            copy = self._copy_streams[dev] = torch.cuda.Stream(dev)
+        compute = torch.cuda.current_stream(dev)
+        with torch.cuda.stream(copy):
+            state = {k: v.to(dev, non_blocking=True)
+                     for k, v in slot.staging.items()}
+        for v in state.values():
+            v.record_stream(compute)
+        copied = torch.cuda.Event()
+        copied.record(copy)
+        compute.wait_event(copied)
+        return state
+
+    def _stage_group(self, dep: _Deployment, orders: list[int],
+                     batches: list[dict],
+                     enq: list[tuple[str, float]]) -> _InFlight:
+        """Fill one ring slot with a dispatch group and launch it: the
+        staging write is host-side (reused pinned buffers: zero
+        steady-state allocations), the copy of the filled slot is the async
+        host->device transfer that overlaps the previous group's kernel,
+        and the program runs on the compute stream once the copy is in."""
+        sizes = [_rows(b) for b in batches]
+        n = sum(sizes)
+        bucket = bucket_size(n)
+        if len(batches) > 1:
+            self.stats["coalesced_batches"] += len(batches)
+        template = batches[0]
+        fields = [(k, tuple(v.shape[1:]) if _is_array(v) else None, v.dtype)
+                  for k, v in template.items()
+                  if isinstance(v, torch.Tensor)]
+        dev = self._next_device()
+        ring_slot = self.ring.acquire(bucket, fields,
+                                      pin=dev.type == "cuda")
+        st = ring_slot.staging
+        off = 0
+        for b, m in zip(batches, sizes):
+            for k, trail, _dt in fields:
+                if trail is not None:
+                    # host->host staging copy: inject batches are
+                    # host-resident packet data (a device-resident batch
+                    # is read back here, one sync per field)
+                    st[k][off:off + m].copy_(b[k])
+            off += m
+        for k, trail, _dt in fields:
+            if trail is None:
+                st[k].copy_(template[k])      # 0-d: a stream counter base
+            else:
+                st[k][n:] = 0                 # pad rows (exact fill: noop)
+        st["valid"][:n] = True
+        st["valid"][n:] = False
+        if self._t_first is None:
+            self._t_first = time.perf_counter()   # streaming window opens
+        state = self._ship(ring_slot, dev)        # async H2D of the slot
+        for k, v in template.items():             # non-tensor fields
+            state.setdefault(k, v)
+        out = self._launch(dep, batches, bucket, state)
+        done = None
+        if dev.type == "cuda":
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(dev))
+        self.inflight_batches += len(orders)
+        self.stats["stream_batches"] += len(orders)
+        return _InFlight(dep, orders, sizes, out, ring_slot, enq, done)
+
+    def _retire(self, slot_entry: _InFlight) -> None:
+        """Drain one ring entry: the ONLY per-slot sync (its completion
+        event), taken when the bounded in-flight window wraps (or at the
+        final flush).  Only now is its staging slot free again."""
+        if slot_entry.done is not None:
+            slot_entry.done.synchronize()
+        t_done = time.perf_counter()
+        self._t_last = t_done
+        off = 0
+        for order, s in zip(slot_entry.orders, slot_entry.sizes):
+            # per-tenant FIFO + per-dep single tenant => retire order is
+            # inject order for every deployment
+            slot_entry.dep.results.append(
+                _slice_result(slot_entry.out, off, s))
+            off += s
+        for tenant, t_enq in slot_entry.enq:      # inject -> slot drain
+            self._lat_s.setdefault(tenant, []).append(t_done - t_enq)
+        if slot_entry.slot is not None:
+            self.ring.release(slot_entry.slot)
+        self.completed_batches += len(slot_entry.orders)
+        self.inflight_batches -= len(slot_entry.orders)
+
+    def _stream_feed(self, entries: Iterable) -> int:
+        """Push one fair service window through the dispatch ring: launch
+        each group, retiring the oldest in-flight entry whenever the
+        window exceeds ``max_inflight``; launches and drains interleave,
+        so transfer and compute overlap across groups."""
+        groups, enq_at = self._fair_groups(entries)
+        for (dag_uid, _sig), group in groups:
+            dep = self.deployments[dag_uid]
+            orders = [order for order, _ in group]
+            batches = [batch for _, batch in group]
+            slot_entry = self._stage_group(
+                dep, orders, batches, [enq_at[o] for o in orders])
+            self._inflight.append(slot_entry)
+            while len(self._inflight) > self.max_inflight:  # ring wrap
+                self._retire(self._inflight.popleft())
+        return len(enq_at)
+
+    def _stream_flush(self) -> None:
+        """Drain every in-flight ring entry and close the streaming
+        throughput window (first-dispatch -> last-drain)."""
+        while self._inflight:
+            self._retire(self._inflight.popleft())
+        if self._t_first is not None:
+            self._elapsed_s += self._t_last - self._t_first
+            self._t_first = None
+
+    def _run_stream(self) -> None:
+        """One streaming run: the current backlog, pipelined."""
+        self._stream_feed(self.sched.drain())
+        self._stream_flush()
+        self.stats["runs"] += 1
+        if _sanitize.enabled():
+            _sanitize.check_compute(self, self.name)
+
+    def inject_stream(self, source: Iterable | Iterator, *,
+                      epoch_cost: float | None = None,
+                      epoch_batches: int | None = None) -> int:
+        """Continuous-inject streaming: service a live inject ``source``
+        epoch-by-epoch instead of draining a static backlog.
+
+        ``source`` yields ``(tenant, dag_uid, state_dict)`` triples.  Each
+        epoch ingests up to ``epoch_batches`` (default: the ring depth)
+        fresh injects, asks the scheduler for one stream-credit window
+        (:meth:`FairScheduler.stream_window`: WDRR order, at most
+        ``epoch_cost`` wire bytes; ``None`` = the whole backlog), and feeds
+        the granted work through the dispatch ring.  In-flight entries
+        carry across epochs; the final flush drains them and closes the
+        throughput window.  Returns the number of batches serviced."""
+        per_epoch = self.ring_depth if epoch_batches is None \
+            else max(1, int(epoch_batches))
+        it = iter(source)
+        exhausted = False
+        served = 0
+        while not exhausted or self.sched.pending():
+            if self.faults is not None and not self.faults.gate_stream():
+                break       # mid-stream fault: backlog stays queued/journaled
+            for _ in range(per_epoch):
+                try:
+                    tenant, dag_uid, st = next(it)
+                except StopIteration:
+                    exhausted = True
+                    break
+                self.inject(tenant, dag_uid, state=st)
+            served += self._stream_feed(self.sched.stream_window(epoch_cost))
+            self.stats["stream_epochs"] += 1
+        self._stream_flush()
+        self.stats["runs"] += 1
+        if _sanitize.enabled():
+            _sanitize.check_compute(self, self.name)
+        return served
+
     # ------------------------------------------------------------- report --
     def report(self) -> PlatformReport:
         rep = PlatformReport(backend=self.name,
                              duration_ns=self._elapsed_s * 1e9)
         rep.extra["compiles"] = self.stats["traces"]
         rep.extra.update(self.stats)
+        rep.extra["ring"] = self.ring.stats()
+        rep.extra["ring"]["max_inflight"] = self.max_inflight
+        rep.extra["inflight_batches"] = self.inflight_batches
         sched_mon = self.sched.snapshot()
         for dep in self.deployments.values():
             tenant = dep.dag.tenant
@@ -787,5 +1100,5 @@ class ComputeBackend:
 
 
 __all__ = ["BUILTIN_COMPUTE_NTS", "ComputeBackend", "ComputeNT",
-           "FUSED_KERNELS", "VPC_SPECS", "WIRE_FIELDS", "bucket_size",
-           "GBPS"]
+           "DispatchRing", "FUSED_KERNELS", "VPC_SPECS", "WIRE_FIELDS",
+           "bucket_size", "GBPS"]

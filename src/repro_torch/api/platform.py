@@ -3,9 +3,9 @@
 This is the repo's analogue of SuperNIC's user interface (§3): a tenant
 registers NTs, declares a network-task DAG with the builder, deploys it,
 injects traffic, and reads typed per-tenant results — without caring whether
-the DAG lands on the event-driven device model, a GPU kernel, or the LLM
-serving engine.  In the port the compute and serving substrates exist so
-far::
+the DAG lands on a GPU kernel, the LLM serving engine, or a fleet of
+shards.  In the port the compute and serving substrates exist so far, and
+a list of compute backends makes a fleet::
 
     from repro_torch.api import ComputeBackend, Platform, VPC_SPECS, nt
 
@@ -27,6 +27,11 @@ far::
         nt("cache") >> nt("prefill") >> nt("decode"))
     dep.inject(prompt, max_new=16)                 # (S,) int32 token ids
     plat.run()
+
+    plat = Platform([ComputeBackend(name="c0", stream=True),
+                     ComputeBackend(name="c1", device=1, stream=True)],
+                    specs=VPC_SPECS)                  # a ShardedBackend
+    plat.drive(trace)                              # a workloads.Trace
 """
 from __future__ import annotations
 
@@ -116,18 +121,19 @@ class Tenant:
 class Platform:
     """Facade over one backend; owns the NT-spec registry and tenant set.
 
-    In the JAX package a *list* of backends fans the platform across a
-    shard fleet; the port has no sharded backend yet (ROADMAP Queue 1 #8),
-    so a list raises ``NotImplementedError``.
+    Pass a *list* of backends to fan the platform across a shard fleet:
+    ``Platform([ComputeBackend(name="c0"), ComputeBackend(name="c1")])``
+    wraps them in a :class:`~repro_torch.api.sharded_backend.ShardedBackend`,
+    so deploys are routed by consolidation-driven placement and tenants are
+    scheduled by the cross-shard fair epoch instead of a single backend.
     """
 
     def __init__(self, backend: Backend | list[Backend] | tuple,
                  specs: dict[str, NTSpec] | list[NTSpec] | None = None,
                  strict: bool = True):
         if isinstance(backend, (list, tuple)):
-            raise NotImplementedError(
-                "a shard fleet (Platform([...])) is not ported yet: "
-                "ROADMAP Queue 1 #8")
+            from .sharded_backend import ShardedBackend
+            backend = ShardedBackend(list(backend))
         self.backend = backend
         self.specs: dict[str, NTSpec] = {}
         self.tenants: dict[str, Tenant] = {}
@@ -173,11 +179,16 @@ class Platform:
         self.backend.run(**kw)
 
     def drive(self, trace, **driver_kw):
-        """Replay a workload trace onto this platform.  The workload plane
-        is not ported yet (ROADMAP Queue 1 #8)."""
-        raise NotImplementedError(
-            "Platform.drive needs the workload plane, which is not ported "
-            "yet: ROADMAP Queue 1 #8")
+        """Replay a :class:`repro_torch.workloads.Trace` onto this platform
+        and return the :class:`repro_torch.workloads.DriveResult` — the
+        one-call path from a sealed scenario to per-tenant counters.
+        Keyword arguments pass through to
+        :class:`repro_torch.workloads.TraceDriver` (``params=``,
+        ``chain_map=``, ``max_new=``)."""
+        # local import: the workload plane imports repro_torch.api for the
+        # DAG builder, so importing it lazily here breaks the cycle
+        from repro_torch.workloads import TraceDriver
+        return TraceDriver(self, **driver_kw).drive(trace)
 
     def report(self) -> PlatformReport:
         return self.backend.report()

@@ -1,12 +1,24 @@
-"""Fault-plane error classes (a copy of the JAX package's
-``faults/errors.py``).
+"""Seeded, deterministic fault injection for the multi-tenant fleet (the
+port of the JAX package's ``repro.faults``).
 
-Only the error hierarchy is ported so far: ``Engine.submit`` raises
-:class:`Overloaded`.  The fault plan, state and injector belong to the
-fleet layers (ROADMAP Queue 1).
+Usage::
+
+    from repro_torch.faults import FaultPlan
+    plan = FaultPlan(seed=7).crash(shard=2, epoch=40)
+    sb = ShardedBackend(shards, fault_plan=plan)
+
+Every backend honors an attached
+:class:`~repro_torch.faults.state.FaultState` (crash/hang/degrade/
+nt-exception/drop/corrupt); ``ShardedBackend`` turns probe misses into
+failover.
 """
 from .errors import (FaultError, NTKernelFault, Overloaded, ShardCrashed,
                      ShardHung)
+from .injector import FaultInjector, faults_of
+from .plan import FaultEvent, FaultPlan
+from .state import FaultState
 
-__all__ = ["FaultError", "ShardCrashed", "ShardHung", "NTKernelFault",
-           "Overloaded"]
+__all__ = [
+    "FaultError", "ShardCrashed", "ShardHung", "NTKernelFault", "Overloaded",
+    "FaultEvent", "FaultPlan", "FaultState", "FaultInjector", "faults_of",
+]

@@ -41,6 +41,32 @@ def _u32(x, device) -> torch.Tensor:
     return x.to(device).reshape(-1).contiguous()
 
 
+def datapath_args(rules, key, nonce, nat_ip, device) -> dict:
+    """The inputs of the kernel that do not change from batch to batch,
+    built on ``device``: the (R, 4) rule table and the key, nonce and NAT
+    address as u32.  A deployment builds them once per device and hands
+    them to :func:`vpc_datapath_prepared` on every dispatch."""
+    return {"rule_table": rule_table(rules, device),
+            "key": _u32(key, device), "nonce": _u32(nonce, device),
+            "nat_ip": _u32(nat_ip, device)}
+
+
+def vpc_datapath_prepared(headers, payload, args: dict, counter0=1,
+                          ctr=None, salt: int = 0x9e3779b9):
+    """:func:`vpc_datapath` over inputs :func:`datapath_args` built on the
+    packets' device."""
+    n = headers.shape[0]
+    dev = headers.device
+    if n == 0:                  # empty batch: nothing to launch
+        return (torch.zeros((0,), dtype=torch.bool, device=dev), headers,
+                payload)
+    if ctr is None:
+        ctr = narrow(arange32(counter0, n, dev))
+    return vpc_datapath_fused(
+        headers.contiguous(), payload.contiguous(), _u32(ctr, dev),
+        args["rule_table"], args["key"], args["nonce"], args["nat_ip"], salt)
+
+
 def vpc_datapath(headers, payload, rules, key, nonce, nat_ip=0x0A000001,
                  counter0=1, ctr=None, salt: int = 0x9e3779b9):
     """Fused firewall -> NAT -> ChaCha20 over a packet batch, one kernel
@@ -53,17 +79,11 @@ def vpc_datapath(headers, payload, rules, key, nonce, nat_ip=0x0A000001,
     ``nat_ip`` and ``counter0`` may be ints or 1-element tensors on the
     device; a tensor ``counter0`` is expanded on the device, never read
     back to the host."""
-    n = headers.shape[0]
-    dev = headers.device
-    if n == 0:                  # empty batch: nothing to launch
-        return (torch.zeros((0,), dtype=torch.bool, device=dev), headers,
-                payload)
-    if ctr is None:
-        ctr = narrow(arange32(counter0, n, dev))
-    return vpc_datapath_fused(
-        headers.contiguous(), payload.contiguous(), _u32(ctr, dev),
-        rule_table(rules, dev), _u32(key, dev), _u32(nonce, dev),
-        _u32(nat_ip, dev), salt)
+    return vpc_datapath_prepared(
+        headers, payload,
+        datapath_args(rules, key, nonce, nat_ip, headers.device),
+        counter0=counter0, ctr=ctr, salt=salt)
 
 
-__all__ = ["rule_table", "smem_tile_bytes", "vpc_datapath"]
+__all__ = ["datapath_args", "rule_table", "smem_tile_bytes", "vpc_datapath",
+           "vpc_datapath_prepared"]
