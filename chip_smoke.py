@@ -25,7 +25,11 @@ prints one JSON line per phase:
                  and the CUDA kernels and memory operations of one run
                  with the fused kernel's rule table, key, nonce and NAT
                  address rebuilt on every dispatch and kept per deployment
-                 (``device_ops_per_run``, from ``torch.profiler``);
+                 (``device_ops_per_run``, from ``torch.profiler``); then
+                 new rules and a new NAT address swapped into both
+                 deployments' params: one more run equal to the plain
+                 version on the new params, and the next with the same
+                 kernels and memory operations (``swapped_params``);
   5. encrypt   — ``bytes_to_blocks`` -> ``encrypt`` -> ``blocks_to_bytes``
                  round trip of a 64 MiB buffer;
   5b. the streaming datapath and the fleet, on the main path's traffic
@@ -52,11 +56,30 @@ prints one JSON line per phase:
                  failover, nothing lost, journal replayed, the crash run's
                  outputs equal the crash-free run's; prints both runs'
                  Mpkt/s and the failover's wall ms;
+     mixed_fleet   — ``Platform([SimBackend(name="edge"),
+                 ComputeBackend(name="gpu0")])``: tenants a (2) and b (1)
+                 deploy firewall >> nat on the simulated sNIC, each fed a
+                 Poisson source of 1,000-byte packets at 300 Gbit/s for
+                 2 ms (3x its port), and a also deploys the fused chain on
+                 the card with the main path's tenant-A traffic injected:
+                 the sim bytes a : b within 10 % of 2, every injected
+                 packet served with the main path's bits, one
+                 ``vpc_datapath`` launch a dispatch group; prints the global
+                 epochs, each tenant's simulated Gbit/s and mean latency,
+                 the card's Mpkt/s and the kernel's ms;
      trace         — ``TraceDriver`` replays the portability trace of
-                 ``benchmarks/bench_scenarios.py`` on the compute,
-                 compute-stream and sharded-compute platforms: schedule
-                 fingerprint ``f1a89120f28456dc`` (``BENCH_scenarios.json``),
-                 every packet served, the same bits on all three;
+                 ``benchmarks/bench_scenarios.py`` on the sim, sharded-sim,
+                 compute, compute-stream and sharded-compute platforms:
+                 schedule fingerprint ``f1a89120f28456dc``
+                 (``BENCH_scenarios.json``), every packet served, the same
+                 bits on the three compute platforms;
+     sim_resilience — host only: the kill-1-of-4 scenario of
+                 ``benchmarks/bench_resilience.py`` (a copy here) at full
+                 size on four ``SimBackend`` shards, twice: no deployment
+                 lost, recovery within 8 epochs, the last chunk's share
+                 error within 0.05 and delivered ratio at least 0.95, both
+                 fingerprints the JAX package's; prints them and the wall
+                 seconds;
   6. serve phases — ``Platform(ServeBackend(cfg, ...))`` four times, each
                  model's weights random f32 from a seeded
                  ``torch.Generator`` and freed before the next phase:
@@ -197,6 +220,38 @@ FLEET_EPOCHS = 4
 FLEET_CRASH_EPOCH = 2
 #: the portability trace's schedule fingerprint (BENCH_scenarios.json)
 TRACE_FINGERPRINT = "f1a89120f28456dc"
+#: the main path's params swapped after its timed runs: the rule table's
+#: seed and the NAT address both deployments read from then on
+SWAP_RULES_SEED = 9
+SWAP_NAT_IP = 0x0B000002
+#: the mixed fleet: each sim tenant's Poisson source (3x the sNIC's 100
+#: Gbit/s port between the two) and the window, and the band its 2 : 1
+#: served-byte ratio must land in
+MIXED_SOURCE_GBPS = 300.0
+MIXED_PKT_BYTES = 1000
+MIXED_MS = 2.0
+MIXED_RATIO_REL = 0.10
+#: the kill-1-of-4 resilience scenario at its full size (the JAX package's
+#: ``benchmarks/bench_resilience.py``): four sim shards, tenants 2:2:1:1,
+#: shard 2 crashes at global epoch 13 of 24 chunks x 2 epochs, seed 42;
+#: clients offer 0.98x the healthy capacity in 1,500-byte packets
+RES_WEIGHTS = {"t0": 2.0, "t1": 2.0, "t2": 1.0, "t3": 1.0}
+RES_SHARDS = 4
+RES_DEAD_SHARD = 2
+RES_SHARD_GBPS = 100.0
+RES_EPOCHS_PER_CHUNK = 2
+RES_PKT_BYTES = 1500
+RES_LOAD_FACTOR = 0.98
+RES_CHUNKS, RES_CRASH_EPOCH, RES_SEED = 24, 13, 42
+#: the normalized report's fingerprint at that size: what the JAX package's
+#: ``bench_resilience._run_once(24, 13, 42)`` gives (the sim is host Python
+#: on seeded streams, so the port's must be the same)
+RES_FINGERPRINT = "2ff27f240aabca7f"
+#: its acceptance: share error and delivered ratio of the last chunk, and
+#: the global epochs from the failover to the first chunk back within both
+RES_SHARE_ERR_BOUND = 0.05
+RES_DELIVERED_BOUND = 0.95
+RES_RECOVERY_EPOCH_BOUND = 8
 #: special-function-unit results (exp2, the core of expf) an SM returns per
 #: clock on compute capability 9.0 (CUDA C++ Programming Guide, arithmetic
 #: instruction throughput)
@@ -865,9 +920,66 @@ def main_path(dev, card: Card | None, profile: bool = False):
         record["device_ops_per_run"] = rebuilt_and_cached(backend, one_run)
     if profile:
         record["profile"] = profile_run(one_run)
+    a_outputs = list(rep["A"].outputs[:batches])     # first timed run's
+    record["swapped_params"] = swapped_params_run(
+        dev, plat, params, traffic, one_run,
+        record.get("device_ops_per_run", {}).get("kept"))
     common = max(shape_counts, key=lambda b: (shape_counts[b], b))
     return record, bucket_args(rng, common, table, ch, nat, dev), \
-        launches_path
+        launches_path, a_outputs
+
+
+def swapped_params_run(dev, plat, params, traffic, one_run, kept) -> dict:
+    """New rules (``make_rules(RULES, seed=SWAP_RULES_SEED)``) and a new NAT
+    address in the params both deployments share, after runs on the old
+    ones: every param is read at dispatch, so one more run equals the plain
+    version on the *new* params (and differs from it on the old), and the
+    run after it puts the same CUDA kernels and memory operations on the
+    card as a run with unchanged params (``kept``)."""
+    from repro_torch._u32 import arange32, narrow
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.kernels.vpc_datapath.kernel import vpc_datapath_plain
+    from repro_torch.kernels.vpc_datapath.ops import rule_table
+    from repro_torch.serving.vpc import make_rules
+    old = (rule_table(params["firewall"]["rules"], dev),
+           params["nat"]["nat_ip"].reshape(1))
+    new = params_from_numpy({
+        "firewall": {"rules": tuple(x.numpy() for x in make_rules(
+            RULES, seed=SWAP_RULES_SEED, device="cpu"))},
+        "nat": {"nat_ip": SWAP_NAT_IP}}, dev)
+    params["firewall"]["rules"] = new["firewall"]["rules"]
+    params["nat"]["nat_ip"] = new["nat"]["nat_ip"]
+    plat.backend.reset_window()
+    one_run()
+    rep = plat.report()
+    table = rule_table(params["firewall"]["rules"], dev)
+    nat = params["nat"]["nat_ip"].reshape(1)
+    ch = params["chacha20"]
+    allowed = packets = 0
+    for name in TENANT_WEIGHTS:
+        outs = rep[name].outputs
+        expect(len(outs) == BATCHES, f"{name}: {len(outs)} outputs")
+        for b, (h, p) in enumerate(traffic[name]):
+            ctr = narrow(arange32(1, h.shape[0], dev))
+            got = (outs[b]["allow"], outs[b]["headers"], outs[b]["payload"])
+            expect(same_triple(got, vpc_datapath_plain(
+                h, p, ctr, table, ch["key"], ch["nonce"], nat, 0x9e3779b9)),
+                f"{name} batch {b}: differs from plain on the new params")
+            if b == 0:
+                expect(not same_triple(got, vpc_datapath_plain(
+                    h, p, ctr, old[0], ch["key"], ch["nonce"], old[1],
+                    0x9e3779b9)), f"{name}: the swap changed no output")
+            allowed += int(got[0].sum())
+            packets += h.shape[0]
+    record = {"rules_seed": SWAP_RULES_SEED, "nat_ip": hex(SWAP_NAT_IP),
+              "packets": packets, "allowed": allowed,
+              "bit_equal_to_plain_on_new_params": True}
+    if dev.type == "cuda":
+        ops = device_ops(one_run)
+        expect(ops == kept, f"after the swap a run puts {ops} on the card, "
+               f"with unchanged params {kept}")
+        record["device_ops_per_run"] = ops
+    return record
 
 
 # ------------------------------------ 4b. streaming, the fleet, the trace ----
@@ -1210,18 +1322,118 @@ def fleet_path(dev):
             "bit_equal_to_crash_free": True}, ref_l + launches
 
 
+def mixed_fleet_path(dev, card: Card | None, main_a: list):
+    """``Platform([SimBackend(name="edge"), ComputeBackend(name="gpu0")])``:
+    tenants a (weight 2) and b (weight 1) each deploy firewall >> nat on the
+    sim shard, fed by Poisson sources at MIXED_SOURCE_GBPS each (the
+    sNIC's port is contended), and a also deploys the fused chain with the
+    main path's params on the card, fed the main path's tenant-A traffic
+    before the window.  The cross-shard epoch keeps the sim-side bytes
+    at 2 : 1 beside the standing compute backlog, the card serves every
+    injected packet with the main path's bits, and ``vpc_datapath``
+    launches once per dispatch group.  Returns the record and the
+    launches."""
+    from repro_torch.api import (ComputeBackend, Platform, SimBackend,
+                                 VPC_SPECS, nt)
+    from repro_torch.kernels.vpc_datapath.kernel import vpc_datapath_cuda
+    from repro_torch.kernels.vpc_datapath.ops import rule_table
+    params, traffic, rng = datapath_setup(dev, host=False)
+    gpu = ComputeBackend(name="gpu0", **on_device(dev))
+    plat = Platform([SimBackend(name="edge"), gpu], specs=VPC_SPECS)
+    sb = plat.backend
+    a = plat.tenant("a", weight=TENANT_WEIGHTS["A"])
+    b = plat.tenant("b", weight=TENANT_WEIGHTS["B"])
+    sim_deps = {t.name: t.deploy(nt("firewall") >> nt("nat"), shard=0)
+                for t in (a, b)}
+    d_gpu = a.deploy(nt("firewall") >> nt("nat") >> nt("chacha20"),
+                     params=params, shard=1)
+    sb.settle()
+    for i, dep in enumerate(sim_deps.values()):
+        dep.source("poisson", rate_gbps=MIXED_SOURCE_GBPS,
+                   mean_bytes=MIXED_PKT_BYTES, seed=i + 1,
+                   duration_ms=MIXED_MS)
+    for h, p in traffic["A"]:
+        d_gpu.inject(headers=h, payload=p)
+    injected = sum(h.shape[0] for h, _ in traffic["A"])
+
+    gpu_s = []
+    gpu_run = gpu.run
+
+    def timed_gpu_run(*args, **kw):
+        t0 = time.perf_counter()
+        gpu_run(*args, **kw)             # ends in the run's device sync
+        gpu_s.append(time.perf_counter() - t0)
+
+    gpu.run = timed_gpu_run
+    vpc_datapath_cuda.launches = 0
+    t0 = time.perf_counter()
+    plat.run(duration_ms=MIXED_MS)
+    wall = time.perf_counter() - t0
+    launches = vpc_datapath_cuda.launches
+    rep = plat.report()
+
+    edge = {t: rep[t].extra["per_shard"]["edge"] for t in ("a", "b")}
+    ratio = edge["a"]["bytes_done"] / edge["b"]["bytes_done"]
+    want = TENANT_WEIGHTS["A"] / TENANT_WEIGHTS["B"]
+    expect(abs(ratio / want - 1.0) <= MIXED_RATIO_REL,
+           f"edge bytes a : b = {ratio}, not {want} within "
+           f"{MIXED_RATIO_REL:.0%}")
+    served = rep["a"].extra["per_shard"]["gpu0"]["pkts_done"]
+    expect(served == injected, f"gpu0 served {served} of {injected}")
+    expect(same_outputs(rep["a"].outputs, main_a),
+           "gpu0's outputs differ from the batch main path's")
+    groups = fair_groups(gpu.dispatch_log,
+                         lambda c: int(c) // WIRE_BYTES_PER_PKT)
+    if dev.type == "cuda":
+        expect(launches == len(groups) > 0,
+               f"vpc_datapath launched {launches}x for {len(groups)} "
+               "dispatch groups")
+    record = {
+        "phase": "mixed_fleet", "shards": ["edge: SimBackend",
+                                           f"gpu0: ComputeBackend({dev})"],
+        "window_ms": MIXED_MS, "global_epochs": sb.global_epochs,
+        "sources": {"gbit_per_s_each": MIXED_SOURCE_GBPS,
+                    "mean_bytes": MIXED_PKT_BYTES},
+        "edge_bytes_ratio_a_to_b": ratio,
+        "edge": {t: {k: edge[t][k] for k in ("gbps", "pkts_done", "drops",
+                                             "mean_latency_us")}
+                 for t in ("a", "b")},
+        "gpu0": {"injected": injected, "served": served,
+                 "dispatch_groups": len(groups), "launches": launches,
+                 "seconds": sum(gpu_s),
+                 "mpkt_per_s": served / sum(gpu_s) / 1e6},
+        "wall_seconds": wall, "bit_equal_to_main_path": True}
+    if card is not None:
+        shapes = launch_shapes(gpu.dispatch_log)
+        table = rule_table(params["firewall"]["rules"], dev)
+        ch, nat = params["chacha20"], params["nat"]["nat_ip"].reshape(1)
+        kernel_ms = {bk: cuda_ms(raw_vpc(bucket_args(rng, bk, table, ch, nat,
+                                                     dev)), 50)
+                     for bk in shapes}
+        record["gpu0"]["kernel_ms_per_launch"] = {
+            str(bk): ms for bk, ms in sorted(kernel_ms.items())}
+        record["gpu0"]["kernel_ms"] = sum(kernel_ms[bk] * c
+                                          for bk, c in shapes.items())
+    return record, launches
+
+
 def trace_path(dev):
     """``TraceDriver`` replays ``benchmarks/bench_scenarios.py``'s
-    portability trace (smoke size) on the compute, compute-stream and
-    sharded-compute platforms; each gives the recorded schedule
-    fingerprint, serves every packet, and the three give the same bits."""
-    from repro_torch.api import ComputeBackend, Platform, VPC_SPECS
+    portability trace (smoke size) on the sim, sharded-sim, compute,
+    compute-stream and sharded-compute platforms; each gives the recorded
+    schedule fingerprint and serves every packet, and the three compute
+    platforms give the same bits (the sim carries sizes, not payloads)."""
+    from repro_torch.api import ComputeBackend, Platform, SimBackend, VPC_SPECS
     from repro_torch.kernels.vpc_datapath.kernel import vpc_datapath_cuda
     from repro_torch.workloads import TraceDriver, constant, generate
     trace = generate("portability", seed=5, epochs=6, n_tenants=6,
                      arrival=constant(1.0), churn_frac=0.25)
     kw = on_device(dev)
     platforms = {
+        "sim": lambda: Platform(SimBackend(seed=3), specs=VPC_SPECS),
+        "sharded": lambda: Platform([SimBackend(name="p0", seed=1),
+                                     SimBackend(name="p1", seed=2)],
+                                    specs=VPC_SPECS),
         "compute": lambda: Platform(ComputeBackend(**kw), specs=VPC_SPECS),
         "compute_stream": lambda: Platform(ComputeBackend(stream=True, **kw),
                                            specs=VPC_SPECS),
@@ -1254,6 +1466,190 @@ def trace_path(dev):
                    f"{kind}: {name}'s outputs differ from compute's")
     record["bit_equal_across_platforms"] = True
     return record, total
+
+
+# ------------------------------ 4c. the sim fleet's resilience, host only ----
+def _res_share_err(served: dict) -> float:
+    shares = [served.get(t, 0.0) / RES_WEIGHTS[t] for t in RES_WEIGHTS]
+    mean = sum(shares) / len(shares)
+    if mean <= 0:
+        return 1.0
+    return max(abs(s / mean - 1.0) for s in shares)
+
+
+def _res_p99_us(lat_ns: list) -> float:
+    if not lat_ns:
+        return 0.0
+    s = sorted(lat_ns)
+    return round(s[min(len(s) - 1, int(0.99 * len(s)))] / 1e3, 1)
+
+
+def _res_window_lats(sb, prev: dict) -> dict:
+    """Latency samples that landed since the previous call, merged across
+    the fleet (a cursor per FlowStats object: rack peers may share one)."""
+    out: dict = {}
+    for sh in sb.shards:
+        for snic in sh.snics:
+            for t, st in snic.stats.items():
+                k = id(st)
+                n0 = prev.get(k, 0)
+                if len(st.latencies_ns) > n0:
+                    out.setdefault(t, []).extend(st.latencies_ns[n0:])
+                prev[k] = len(st.latencies_ns)
+    return out
+
+
+def resilience_run(n_chunks: int, crash_epoch: int, seed: int) -> dict:
+    """The kill-1-of-4 scenario of the JAX package's
+    ``benchmarks/bench_resilience.py`` on the port's sim fleet: four
+    ``SimBackend`` shards, one deployment per tenant per shard, a seeded
+    ``FaultPlan`` crashing shard RES_DEAD_SHARD at ``crash_epoch``, clients
+    injecting through the coordinator in chunks of RES_EPOCHS_PER_CHUNK
+    global epochs at RES_LOAD_FACTOR x the healthy capacity, spread over
+    each tenant's live replicas.  Returns the same normalized (uid-free)
+    report, chunk by chunk."""
+    from repro_torch.api import (Platform, ShardedBackend, SimBackend,
+                                 VPC_SPECS, nt)
+    from repro_torch.faults import FaultError, FaultPlan
+
+    plan = FaultPlan(seed=seed).crash(shard=RES_DEAD_SHARD, epoch=crash_epoch)
+    sb = ShardedBackend(
+        [SimBackend(name=f"sim{i}", seed=100 + i) for i in range(RES_SHARDS)],
+        fault_plan=plan, health_threshold=2, auto_rebalance=False)
+    plat = Platform(sb, specs=VPC_SPECS)
+    chain = nt("firewall") >> nt("nat")
+    deps = {t: [plat.tenant(t, weight=w).deploy(chain, shard=s)
+                for s in range(RES_SHARDS)]
+            for t, w in RES_WEIGHTS.items()}
+    sb.settle()
+
+    chunk_ns = RES_EPOCHS_PER_CHUNK * sb.global_epoch_ns
+    wsum = sum(RES_WEIGHTS.values())
+    cursors: dict = {}
+    prev_bytes = {t: 0.0 for t in RES_WEIGHTS}
+    chunks, inject_errors = [], 0
+    for c in range(n_chunks):
+        healthy = sum(sb.healthy)
+        cap_bytes = healthy * RES_SHARD_GBPS / 8.0 * chunk_ns
+        offered = 0
+        for t, w in RES_WEIGHTS.items():
+            by_shard: dict = {}
+            for d in deps[t]:
+                by_shard.setdefault(sb.routes[d.uid], d.uid)
+            uids = [by_shard[s] for s in sorted(by_shard)]
+            pkts = int(RES_LOAD_FACTOR * cap_bytes * (w / wsum)
+                       / RES_PKT_BYTES)
+            offered += pkts * RES_PKT_BYTES
+            for k in range(pkts):
+                try:
+                    sb.inject(t, uids[k % len(uids)], RES_PKT_BYTES)
+                except FaultError:
+                    inject_errors += 1
+        plat.run(duration_ms=chunk_ns / 1e6)
+        rep = plat.report()
+        served = {t: rep[t].bytes_done - prev_bytes[t] for t in RES_WEIGHTS}
+        prev_bytes = {t: rep[t].bytes_done for t in RES_WEIGHTS}
+        lats = _res_window_lats(sb, cursors)
+        chunks.append({
+            "chunk": c,
+            "end_epoch": (c + 1) * RES_EPOCHS_PER_CHUNK,
+            "healthy": healthy,
+            "share_err": round(_res_share_err(served), 4),
+            "delivered": round(sum(served.values()) / offered, 4),
+            "served_mb": {t: round(served[t] / 1e6, 3) for t in RES_WEIGHTS},
+            "p99_us": _res_p99_us([x for v in lats.values() for x in v]),
+            "failovers": len(rep.extra["failovers"]),
+        })
+
+    rep = plat.report()
+    failovers = [{"epoch": f["epoch"], "shard": f["shard"],
+                  "reason": f["reason"], "moved": len(f["moved"]),
+                  "lost": f["lost"], "inflight_pkts": f["inflight_pkts"],
+                  "replayed": f["replayed"]}
+                 for f in rep.extra["failovers"]]
+    fo_chunk = next((c["chunk"] for c in chunks if c["failovers"]), None)
+    fo_epoch = failovers[0]["epoch"] if failovers else None
+    recovered = next(
+        (c for c in chunks
+         if fo_chunk is not None and c["chunk"] >= fo_chunk
+         and c["share_err"] <= RES_SHARE_ERR_BOUND
+         and c["delivered"] >= RES_DELIVERED_BOUND), None)
+    victim_win = [c for c in chunks
+                  if fo_chunk is not None
+                  and fo_chunk <= c["chunk"] <= fo_chunk + 1]
+    steady = [c for c in chunks
+              if fo_chunk is not None and c["chunk"] == fo_chunk - 1]
+    return {
+        "chunks": chunks,
+        "failovers": failovers,
+        "recoveries": len(rep.extra["recoveries"]),
+        "lost": dict(rep.extra["lost"]),
+        "inject_retries": rep.extra["inject_retries"],
+        "inject_errors": inject_errors,
+        "fault_plan": rep.extra["faults"]["plan"],
+        "failover_epoch": fo_epoch,
+        "recovery_epochs": (recovered["end_epoch"] - fo_epoch
+                            if recovered and fo_epoch is not None else None),
+        "victim_p99_us": max((c["p99_us"] for c in victim_win), default=0.0),
+        "steady_p99_us": max((c["p99_us"] for c in steady), default=0.0),
+        "per_tenant": {t: {"pkts": rep[t].pkts_done,
+                           "mb": round(rep[t].bytes_done / 1e6, 3),
+                           "drops": rep[t].drops,
+                           "p99_us": round(rep[t].p99_latency_us, 1)}
+                       for t in RES_WEIGHTS},
+    }
+
+
+def resilience_fingerprint(run: dict) -> str:
+    import hashlib
+    return hashlib.sha256(
+        json.dumps(run, sort_keys=True).encode()).hexdigest()[:16]
+
+
+def resilience_acceptance(run1: dict, run2: dict) -> dict:
+    """The reference's acceptance of the scenario: no deployment lost,
+    recovery within RES_RECOVERY_EPOCH_BOUND epochs, the last chunk's share
+    error and delivered ratio within their bounds, and both runs equal."""
+    rec = run1["recovery_epochs"]
+    last = run1["chunks"][-1]
+    det = resilience_fingerprint(run1) == resilience_fingerprint(run2)
+    return {"lost_deployments": run1["lost"]["deployments"],
+            "recovery_epochs": rec,
+            "final_share_err": last["share_err"],
+            "final_delivered": last["delivered"],
+            "deterministic": det,
+            "pass": (run1["lost"]["deployments"] == 0
+                     and rec is not None and rec <= RES_RECOVERY_EPOCH_BOUND
+                     and last["share_err"] <= RES_SHARE_ERR_BOUND
+                     and last["delivered"] >= RES_DELIVERED_BOUND
+                     and det)}
+
+
+def sim_resilience_path() -> dict:
+    """The resilience scenario at full size, twice from scratch: host
+    Python only (the sim carries no tensors); prints the acceptance
+    figures, both fingerprints and each run's wall seconds."""
+    runs, secs = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        runs.append(resilience_run(RES_CHUNKS, RES_CRASH_EPOCH, RES_SEED))
+        secs.append(time.perf_counter() - t0)
+    acc = resilience_acceptance(*runs)
+    expect(acc["pass"], f"resilience acceptance failed: {acc}")
+    fps = [resilience_fingerprint(r) for r in runs]
+    expect(fps[0] == RES_FINGERPRINT,
+           f"resilience fingerprint {fps[0]}, the JAX package's "
+           f"{RES_FINGERPRINT}")
+    run = runs[0]
+    return {"phase": "sim_resilience", "shards": RES_SHARDS,
+            "dead_shard": f"sim{RES_DEAD_SHARD}", "chunks": RES_CHUNKS,
+            "crash_epoch": RES_CRASH_EPOCH, "seed": RES_SEED,
+            "acceptance": acc,
+            "fingerprints": fps,
+            "failovers": run["failovers"], "lost": run["lost"],
+            "victim_p99_us": run["victim_p99_us"],
+            "steady_p99_us": run["steady_p99_us"],
+            "wall_seconds": secs}
 
 
 def device_ops(one_run) -> dict:
@@ -2895,7 +3291,7 @@ def main() -> int:
           "seconds": time.perf_counter() - t0})
     free_device()
 
-    record, args, launches = main_path(dev, card, profile=profile)
+    record, args, launches, main_a = main_path(dev, card, profile=profile)
     emit(record)
     vpc_launches = {"main": launches}
 
@@ -2911,8 +3307,12 @@ def main() -> int:
     del ref
     record, vpc_launches["fleet"] = fleet_path(dev)
     emit(record)
+    record, vpc_launches["mixed_fleet"] = mixed_fleet_path(dev, card, main_a)
+    emit(record)
+    del main_a
     record, vpc_launches["trace"] = trace_path(dev)
     emit(record)
+    emit(sim_resilience_path())
     vpc = vpc_line(card, args, vpc_launches)
     free_device()
 

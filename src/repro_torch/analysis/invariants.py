@@ -2,13 +2,15 @@
 
 Opt-in dynamic checks of the conservation laws the scheduling/accounting
 core promises, evaluated at epoch boundaries when ``REPRO_SANITIZE=1`` is
-set in the environment.  In the port the hooks are wired into
-:meth:`repro_torch.api.compute_backend.ComputeBackend.run` and
-``inject_stream`` (end of drain),
-:meth:`repro_torch.api.sharded_backend.ShardedBackend._global_epoch` and
-:meth:`repro_torch.serving.engine.Engine.step`; the sNIC model and the sim
-backend carry the other hooks in the JAX package and are not ported yet,
-so their rules below are kept for when they are.
+set in the environment.  Hooks are wired into:
+
+  - :meth:`repro_torch.core.snic.SNIC._epoch` (per-device DRF epoch),
+  - :meth:`repro_torch.api.sim_backend.SimBackend.run` / ``settle`` (end
+    of window),
+  - :meth:`repro_torch.api.sharded_backend.ShardedBackend._global_epoch`,
+  - :meth:`repro_torch.api.compute_backend.ComputeBackend.run` and
+    ``inject_stream`` (end of drain),
+  - :meth:`repro_torch.serving.engine.Engine.step`.
 
 Rules (each violation is a :class:`~repro_torch.analysis.diagnostics.Diagnostic`
 wrapped in :class:`InvariantViolation`):
@@ -21,7 +23,7 @@ wrapped in :class:`InvariantViolation`):
     — :class:`~repro_torch.core.sched.timeshare.DeficitRoundRobin` only spends
     deficit it has and idle queues forfeit to exactly zero.
   - **I-PKTS**: fleet-wide, packets accounted (done + dropped, deduping
-    ``FlowStats`` objects rack peers share) never
+    :class:`~repro_torch.core.sim.FlowStats` objects rack peers share) never
     exceed packets injected.  Per-sNIC conservation is NOT an invariant:
     rack forwarding completes a packet on a *peer* of the sNIC that
     injected it, so the law only sums.

@@ -1,12 +1,15 @@
 """The backend protocol every substrate implements, plus the typed results
 ``Platform.report()`` returns.
 
-The port has two substrates so far:
-:class:`~repro_torch.api.compute_backend.ComputeBackend`, NT names bound to
-batched PyTorch code and, for the VPC chain, to one hand-written CUDA
-kernel; and :class:`~repro_torch.api.serve_backend.ServeBackend`, the LLM
-serving engine.  The event-simulated sNIC implements the same protocol in
-the JAX package and has not been ported yet.
+One DAG, three substrates:
+
+  - :class:`~repro_torch.api.sim_backend.SimBackend` — the paper-constant
+    discrete-event sNIC (latency/Gbps/drop stats), host Python;
+  - :class:`~repro_torch.api.compute_backend.ComputeBackend` — NT names
+    bound to batched PyTorch code and, for the VPC chain, to one
+    hand-written CUDA kernel;
+  - :class:`~repro_torch.api.serve_backend.ServeBackend` — the multi-tenant
+    LLM serving engine (requests through cache/prefill/decode NTs).
 """
 from __future__ import annotations
 

@@ -228,11 +228,13 @@ VPC_SPECS: dict[str, NTSpec] = {
 def _vpc_fused_factory(params: dict) -> Callable | None:
     """Fused launcher for the canonical VPC chain, or None if the deployment
     params cannot feed the fused kernel (missing rules/key/nonce).  The
-    deploy-time params are only a capability probe: the kernel's fixed
-    inputs (rule table, key, nonce, NAT address) are built from the
-    runtime params argument on the first dispatch to each device and kept
-    in ``program.prepared`` for every later one, so a dispatch launches the
-    kernel and nothing else."""
+    deploy-time params are only a capability probe: every param is read
+    from the runtime params argument, the same binding the composed path
+    gives every NT.  The kernel's fixed inputs (rule table, key, nonce, NAT
+    address) built from them are kept per device in ``program.prepared``
+    together with the param objects they came from, and rebuilt when any of
+    those objects is replaced, so a dispatch whose params are unchanged
+    launches the kernel and nothing else."""
     try:
         params["firewall"]["rules"]
         params["chacha20"]["key"]
@@ -242,22 +244,26 @@ def _vpc_fused_factory(params: dict) -> Callable | None:
 
     def program(state: dict, params: dict) -> dict:
         ch = params["chacha20"]
+        # held by reference and compared with ``is``: a recycled id()
+        # cannot alias a replaced param
+        sources = (params["firewall"]["rules"], ch["key"], ch["nonce"],
+                   params.get("nat", {}).get("nat_ip", 0x0A000001))
         dev = state["headers"].device
-        args = program.prepared.get(dev)
-        if args is None:
-            args = datapath_args(
-                params["firewall"]["rules"], ch["key"], ch["nonce"],
-                params.get("nat", {}).get("nat_ip", 0x0A000001), dev)
-            program.prepared[dev] = args
+        entry = program.prepared.get(dev)
+        if entry is None or any(a is not b
+                                for a, b in zip(entry[0], sources)):
+            entry = (sources, datapath_args(*sources, dev))
+            program.prepared[dev] = entry
         allow, hout, pout = vpc_datapath_prepared(
-            state["headers"], state["payload"], args,
+            state["headers"], state["payload"], entry[1],
             # ctr0 is a stream-mode counter base (a 0-d tensor on the
             # device; the wrapper expands it there)
             counter0=state.get("ctr0", ch.get("counter0", 1)),
             ctr=state.get("ctr"))
         return {**state, "allow": allow, "headers": hout, "payload": pout}
 
-    #: device -> the kernel's fixed inputs, built on the first dispatch there
+    #: device -> (the param objects read, the kernel's fixed inputs built
+    #: from them on that device)
     program.prepared = {}
     return program
 

@@ -3,11 +3,19 @@
 This is the repo's analogue of SuperNIC's user interface (§3): a tenant
 registers NTs, declares a network-task DAG with the builder, deploys it,
 injects traffic, and reads typed per-tenant results — without caring whether
-the DAG lands on a GPU kernel, the LLM serving engine, or a fleet of
-shards.  In the port the compute and serving substrates exist so far, and
-a list of compute backends makes a fleet::
+the DAG lands on the event-driven device model, a GPU kernel, the LLM
+serving engine, or a fleet of shards::
 
-    from repro_torch.api import ComputeBackend, Platform, VPC_SPECS, nt
+    from repro_torch.api import Platform, SimBackend, VPC_SPECS, nt
+
+    plat = Platform(SimBackend(), specs=VPC_SPECS)        # host Python
+    ten = plat.tenant("alice", weight=2.0)
+    dep = ten.deploy(nt("firewall") >> nt("nat") >> nt("chacha20"))
+    ten.inject(1500)                      # one 1500 B packet
+    plat.run(duration_ms=2.0, settle=True)
+    print(plat.report()["alice"].mean_latency_us)
+
+    from repro_torch.api import ComputeBackend
 
     plat = Platform(ComputeBackend(), specs=VPC_SPECS)    # cuda:0
     ten = plat.tenant("alice", weight=2.0)
@@ -32,6 +40,10 @@ a list of compute backends makes a fleet::
                      ComputeBackend(name="c1", device=1, stream=True)],
                     specs=VPC_SPECS)                  # a ShardedBackend
     plat.drive(trace)                              # a workloads.Trace
+
+A list may mix substrates: ``Platform([SimBackend(name="edge"),
+ComputeBackend(name="gpu0")])`` puts the sNIC model and the card behind one
+cross-shard fair epoch.
 """
 from __future__ import annotations
 

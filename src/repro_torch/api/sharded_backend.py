@@ -7,11 +7,11 @@ the *peak of the aggregate* rather than the sum of per-endpoint peaks
 behind the ordinary :class:`~repro_torch.api.backend.Backend` protocol, so
 ``Platform(ShardedBackend([...]))`` (or just ``Platform([be0, be1])``)
 needs no new tenant-facing API.  The port of the JAX package's
-``api/sharded_backend.py``: in the port the shards are
+``api/sharded_backend.py``: the shards are
+:class:`~repro_torch.api.sim_backend.SimBackend` sNICs,
 :class:`~repro_torch.api.compute_backend.ComputeBackend` instances (one
-per GPU, or several on one), in batch or streaming mode; the event-driven
-paths below (shards that own an event simulator) are kept for the
-simulated sNIC, which the port does not have yet.
+per GPU, or several on one, in batch or streaming mode), or a mixed
+fleet.
 
 Three mechanisms make the fleet one platform:
 

@@ -1,7 +1,7 @@
 """Reusable resource-policy components (paper §4.4, C5).
 
 Both substrates that schedule real work — the event-driven sNIC device model
-(still to be ported) and the ML serving engine
+(:mod:`repro_torch.core.snic`) and the ML serving engine
 (:mod:`repro_torch.serving.engine`) — run the same two control loops:
 
   - **run-time-monitored DRF admission**: accumulate *measured* per-tenant

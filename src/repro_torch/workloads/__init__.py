@@ -14,8 +14,8 @@ The pipeline is ``arrivals + population + churn -> generate() -> Trace
 - :mod:`~repro_torch.workloads.generator` — one seeded call tying them
   together;
 - :mod:`~repro_torch.workloads.driver` — :class:`TraceDriver`, replaying
-  one fingerprinted trace onto compute (batch + stream), serving, or a
-  sharded fleet of compute shards through the public Platform API.
+  one fingerprinted trace onto sim, compute (batch + stream), serving, or
+  a sharded fleet through the public Platform API.
 
 The port of the JAX package's ``repro.workloads``: the same traces, seeds
 and fingerprints.  Determinism is load-bearing here: the I-TRACE

@@ -2,10 +2,9 @@
 
 The driver is the portability layer of the workload plane: the *same*
 trace (same fingerprint, same arrival schedule, same churn epochs) drives
-the fused compute backend in batch or streaming mode, a sharded fleet of
-compute shards, the LLM serving engine and (in the JAX package, until the
-port has it) the event-driven sim — all through the public Platform API,
-never a backend's internals.  What varies per substrate is only how an
+the event-driven sim, the fused compute backend in batch or streaming
+mode, the LLM serving engine, and a sharded fleet — all through the
+public Platform API, never a backend's internals.  What varies per substrate is only how an
 "arrival of ``n`` packets for tenant ``t``" materializes (sim events, a
 ``(n, 5)``/``(n, 16)`` u32 wire batch, or token prompts) and how one trace
 epoch maps onto the backend's window (``duration_ns`` for event backends,

@@ -331,6 +331,71 @@ def test_admission_diagnostics_match_rule_for_rule(case):
         assert errs[0] == errs[1]
 
 
+# ====================================== params swapped between two runs ==
+#: new values for the deployment's live params dict, per probe: the fused
+#: program builds its rule table, key, nonce and NAT address from these
+F1_SWAPS = {
+    "rules_and_nat_ip": {
+        "firewall": {"rules": tuple(np.array(x)
+                                    for x in jvpc.make_rules(32, seed=9))},
+        "nat": {"nat_ip": 0x0B000002}},
+    "key_and_nonce": {"chacha20": {"key": KEY * 5 + 2, "nonce": NONCE + 11}},
+}
+
+
+def swap_params(api, dep, swap: dict) -> None:
+    """Replace values in the deployment's live params (the dict the
+    backend passes every dispatch), converted for ``api``."""
+    def conv(v):
+        if isinstance(v, int):
+            return v
+        if isinstance(v, tuple):
+            return tuple(conv(x) for x in v)
+        return jnp.asarray(v) if api is japi else torch.from_numpy(v)
+
+    live = dep.tenant.platform.backend.deployments[dep.uid].params
+    for name, kv in swap.items():
+        for k, v in kv.items():
+            live[name][k] = conv(v)
+
+
+#: the port's runtimes under test: the fused program in batch and in stream
+#: mode (one program serves both), and the composed path
+F1_PORT = {"fused": {"use_fused": True},
+           "fused_stream": {"use_fused": True, "stream": True},
+           "composed": {"use_fused": False}}
+
+
+@pytest.mark.parametrize("jax_fused", [True, False])
+@pytest.mark.parametrize("port", sorted(F1_PORT))
+@pytest.mark.parametrize("swap", sorted(F1_SWAPS))
+def test_params_swapped_after_a_run_are_read_like_jax(swap, port, jax_fused):
+    """The probe of a fault the port had: 64 packets, ``run()``, then new
+    rules and NAT address (or a new key and nonce) in the deployment's
+    params, 64 more packets, ``run()``.  Every param is read from the
+    runtime params argument in both packages, so the second run's
+    ``allow``, ``headers``, ``payload`` and ``ctr`` equal the JAX
+    package's, fused (Pallas interpret) and composed alike; a fused
+    program that kept its first dispatch's inputs gave other bits."""
+    def script(api, plat, deps):
+        feed(api, deps["t"], 64, seed=1)
+        plat.run()
+        swap_params(api, deps["t"], F1_SWAPS[swap])
+        feed(api, deps["t"], 64, seed=3)
+        plat.run()
+
+    plat = replay(script, jax_kw={"use_fused": jax_fused},
+                  port_kw=F1_PORT[port], key=("f1", swap, jax_fused),
+                  stats=("dispatches", "batches", "runs"))
+    outs = plat.report()["t"].outputs
+    assert len(outs) == 2 and set(outs[1]) >= {"allow", "headers",
+                                               "payload", "ctr"}
+    assert plat.backend.stats["fused_dispatches"] == \
+        (2 if F1_PORT[port]["use_fused"] else 0)
+    if swap == "rules_and_nat_ip":
+        assert bool(outs[1]["allow"].all())     # the new table allows all
+
+
 # ============================================ device and ported paths ==
 def test_default_device_is_the_card_and_never_the_cpu():
     if torch.cuda.is_available():
