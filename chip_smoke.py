@@ -10,7 +10,8 @@ PyTorch version on the card (bit-exact for the integer kernels), drives the
 paths a user calls, and
 prints one JSON line per phase:
 
-  1. card      — device name, and the ``nvidia-smi`` name / power limit line;
+  1. card      — device name, and the ``nvidia-smi`` name / power limit line
+                 (printed again just before the kernels line);
   2. build     — seconds the build took, ptxas register / spill counts;
   3. kernels   — ``chacha20_xor`` and ``vpc_datapath`` against their plain
                  versions at many shapes (``torch.equal``: bit-exact), the
@@ -135,11 +136,39 @@ prints one JSON line per phase:
                  ``compress="none"``); and the quantize kernel's device ms
                  a step (its launches at each (R, D) times the raw-launch
                  ms there) and share;
+  7b. the family train phases (``TRAIN_FAMILIES``), each at full width,
+                 batch 1 x 4,096, lr 3e-4, 5 steps, weights random f32
+                 from a seeded generator: ``train_moe`` (granite whole,
+                 int8 compression), ``train_hybrid`` (jamba cut to its
+                 first two layers, Mamba + MLP and Mamba + 16-expert MoE,
+                 grad_accum 1) and ``train_rwkv`` (rwkv6-3b cut to 8
+                 layers).  Each first emits ``<phase>_gates``, on their own
+                 weights: one step's loss and whole gradient in f32
+                 compute with the kernels against every kernel replaced by
+                 its plain version (1e-5 relative, 1e-4 relative L2; the
+                 plain route takes the kernels' experts), where a scan
+                 backward recomputing every segment from a zero state and
+                 a loss without the router's aux term must fail; RWKV's
+                 at 2 layers, and its 8 within twice the spread of a
+                 plain route whose scan runs in f64 (through 8 random
+                 layers f32 rounding alone exceeds 1e-4).  Then the
+                 Trainer's run: exact launches a step (``moe_gmm`` 6 a MoE
+                 layer, the forward and the remat recompute; ``mamba_ssm``
+                 and ``rwkv6_wkv`` 128 a layer, 64 segments twice;
+                 ``flash_attention`` 2 an attention layer; the quantize
+                 pair once a parameter tensor with int8), finite losses
+                 and gradient norms, median step seconds, tokens/s, MFU
+                 (the experts a token visits), peak memory, ``reduced``;
+                 each kernel's device ms a step (launches at each shape
+                 times the raw-launch ms there), the compression's ms, and
+                 one layer's plain scan backward (wall ms and, from
+                 ``torch.profiler``, its device ms);
   8. the ``{"kernels": [...]}`` line: per kernel (all eight) its launches
-     on its path (``vpc_datapath``: on the main path and the phases of
-     5b, each counted from 0 just before it, ``launches_by_path``), time,
-     plain time, bound and, where one PyTorch call computes the same
-     function, that call's time;
+     on each path that ran it, each counted from 0 just before the path's
+     run (``launches_by_path``; ``launches`` their sum), time, plain time,
+     bound and, where one PyTorch call computes the same function, that
+     call's time; the train phases' per-launch ms, bound and library ms at
+     their own shapes (``train_paths``);
 and last ``{"ok": true, "device": {...}}``.  Phase 3 also holds the
 flash-attention kernel against its plain version over causal and not,
 G in {1, 2, 4, 8}, hd in {64, 128}, S in {1, 7, 63, 65, 128, 129, 1000,
@@ -342,6 +371,25 @@ TRAIN_B, TRAIN_S = 1, 4096
 TRAIN_STEPS = 5
 TRAIN_LR = 3e-4
 TRAIN_SEED = 16
+#: the family train phases: phase -> (arch, layers kept or None for all,
+#: gradient compression), each at full width, batch TRAIN_B x TRAIN_S,
+#: TRAIN_STEPS steps at TRAIN_LR, random f32 weights from TRAIN_SEED.
+#: Granite whole with int8 (1.38 B parameters, five f32 copies ~28 GB);
+#: Jamba's first two layers (Mamba + MLP, Mamba + 16-expert MoE: 3.74 B,
+#: 2.82 B of them the MoE; f32 masters, bf16 copies and gradients, f32
+#: moments ~60 GB; int8's f32 gradients and EF would need ~75 GB), its
+#: grad_accum 4 -> 1; RWKV-6 cut to 8 of 32 layers (1.0 B, ~16 GB) for
+#: time: its backward recomputes 4,096 plain scan steps a layer.  The last
+#: field is the depth of the f32 gate where it is not the phase's: through
+#: 8 random RWKV layers f32 rounding of the scan alone moves the gradient
+#: by 8.3e-4 relative L2 (a plain route with the scan in f64 against the
+#: f32 one), above the gate's 1e-4, and by 3.6e-6 through 2 (PERF.md
+#: section 6); the 8 layers are held to twice that spread instead
+TRAIN_FAMILIES = {
+    "train_moe": ("granite-moe-1b-a400m", None, "int8", None),
+    "train_hybrid": ("jamba-v0.1-52b", 2, "none", None),
+    "train_rwkv": ("rwkv6-3b", 8, "none", 2),
+}
 #: the card's restart check: relative loss difference after the restore
 #: (the embedding's backward accumulates with atomics)
 RESTART_RTOL = 1e-3
@@ -3230,6 +3278,526 @@ def quantize_step(shapes: dict, step_s: float) -> dict:
                  "ms": ms[R, D]} for (R, D), count in sorted(shapes.items())]}
 
 
+# ---------------------------------------------------- 7b. family train ----
+def train_kernels() -> dict:
+    """The wrappers of the kernels a train step can launch, by name."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.mamba_scan import mamba_ssm_cuda
+    from repro_torch.kernels.moe_gmm import moe_gmm_cuda
+    from repro_torch.kernels.quantize import (dequantize_int8_cuda,
+                                              quantize_int8_cuda)
+    from repro_torch.kernels.rwkv6_scan import rwkv6_wkv_cuda
+    return {"flash_attention": flash_attention_cuda, "moe_gmm": moe_gmm_cuda,
+            "mamba_ssm": mamba_ssm_cuda, "rwkv6_wkv": rwkv6_wkv_cuda,
+            "quantize_int8": quantize_int8_cuda,
+            "dequantize_int8": dequantize_int8_cuda}
+
+
+def kinds_of(cfg) -> dict:
+    """Layers of each mixer and channel kind."""
+    out: dict = {}
+    for pair in cfg.layer_kinds():
+        for kind in pair:
+            out[kind] = out.get(kind, 0) + 1
+    return out
+
+
+def launches_per_step(cfg, n_leaves: int, compress: str) -> dict:
+    """Each train kernel's launches in one step: the layer's forward runs
+    again in the backward under ``remat="full"``; a MoE layer launches the
+    expert matmul three times, a Mamba or RWKV layer its scan once a
+    segment (the JAX package's segment rule), an attention layer the flash
+    kernel once; the int8 compression quantizes and dequantizes each
+    parameter tensor once."""
+    from repro_torch.kernels._segments import segment_length
+    runs = 2 if cfg.remat == "full" else 1
+    k = kinds_of(cfg)
+    seg = {chunk: TRAIN_S // segment_length(TRAIN_S, chunk)
+           for chunk in (cfg.mamba_chunk, cfg.rwkv_chunk)}
+    quant = n_leaves if compress == "int8" else 0
+    return {"flash_attention": runs * k.get("attn", 0),
+            "moe_gmm": runs * 3 * k.get("moe", 0),
+            "mamba_ssm": runs * seg[cfg.mamba_chunk] * k.get("mamba", 0),
+            "rwkv6_wkv": runs * seg[cfg.rwkv_chunk] * k.get("rwkv", 0),
+            "quantize_int8": quant, "dequantize_int8": quant}
+
+
+@contextlib.contextmanager
+def patched_all(patches: list):
+    """:func:`patched` over a list of (module, {name: value})."""
+    with contextlib.ExitStack() as stack:
+        for module, attrs in patches:
+            stack.enter_context(patched(module, **attrs))
+        yield
+
+
+def family_gates(dev, cfg, batch, spread: bool = False) -> dict:
+    """Gradient gates of one step at cfg's width and depth, on their own
+    weights, in f32 compute: the loss and whole gradient with the kernels
+    against every kernel replaced by its plain version (1e-5 relative
+    loss, 1e-4 relative L2), and controls that must fail that gate: the
+    scans' backward recomputing every segment from a zero state (not from
+    the state the segment started from), and a loss without the MoE
+    router's aux term.  The all-plain route takes the experts the kernels'
+    forward chose (routing flips between two summation orders on
+    near-ties; ``routing_flips`` counts the (token, layer) pairs whose own
+    top k would differ).  With ``spread``, where f32 rounding alone moves
+    the gradient by more than 1e-4, the gradient is held instead within
+    twice the spread between the plain route and one whose scans run in
+    f64, with no controls.  At most two gradient trees are alive at
+    once."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import attention_ref
+    from repro_torch.kernels.mamba_scan import mamba_ssm_ref
+    from repro_torch.kernels.mamba_scan import ops as scan_ops
+    from repro_torch.kernels.moe_gmm import moe_gmm_ref
+    from repro_torch.kernels.moe_gmm import ops as gmm_ops
+    from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
+    from repro_torch.kernels.rwkv6_scan import rwkv6_wkv_ref
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import attention as A
+    from repro_torch.models import init_params
+    from repro_torch.models import moe as X
+
+    kinds = kinds_of(cfg)
+    router_topk = X.router_topk
+    chosen: dict = {}               # router weight's address -> its top k
+    flips: dict = {}                # the same -> tokens whose own differ
+
+    def recording(p, x, cfg_):
+        gates, idx, aux = router_topk(p, x, cfg_)
+        chosen.setdefault(p["router"]["w"].data_ptr(), idx)
+        return gates, idx, aux
+
+    def pinned(p, x, cfg_):
+        _, own, aux = router_topk(p, x, cfg_)
+        key = p["router"]["w"].data_ptr()
+        idx = chosen[key]
+        flips[key] = int((own != idx).any(-1).sum())
+        probs = torch.softmax(x.float() @ p["router"]["w"].float(), dim=-1)
+        gates = probs.gather(-1, idx)
+        return gates / gates.sum(-1, keepdim=True).clamp(min=1e-9), idx, aux
+
+    def no_aux(p, x, cfg_):
+        gates, idx, aux = recording(p, x, cfg_)
+        return gates, idx, aux * 0.0
+
+    def as_kernel(scan):
+        """``scan`` in a kernel wrapper's place: the wrapper's last
+        argument, the final state's destination, is None on the train
+        path."""
+        return lambda *a: scan(*a[:-1])
+
+    def in_f64(ref):
+        """The plain scan in f64, its results in f32."""
+        def scan(*a):
+            y, st = ref(*(None if t is None else t.double() for t in a))
+            return y.float(), st.float()
+        return scan
+
+    def from_zero(ref):
+        """The plain scan from a zero state, the given one kept in the
+        graph (times 0) so that its gradient is taken, and is zero."""
+        def scan(*a):
+            return ref(*a[:-1], None if a[-1] is None else a[-1] * 0.0)
+        return scan
+
+    kernels = [(X, {"router_topk": recording})] if "moe" in kinds else []
+    rest = [(A, {"flash_attention": attention_ref}),
+            (gmm_ops, {"moe_gmm_cuda": moe_gmm_ref})]
+    if "moe" in kinds:
+        rest.append((X, {"router_topk": pinned}))
+    plain = rest + [(scan_ops, {"mamba_ssm_cuda": as_kernel(mamba_ssm_ref)}),
+                    (wkv_ops, {"rwkv6_wkv_cuda": as_kernel(rwkv6_wkv_ref)})]
+    f64 = rest + [
+        (scan_ops, {"mamba_ssm_cuda": as_kernel(in_f64(mamba_ssm_ref)),
+                    "mamba_ssm_ref": in_f64(mamba_ssm_ref)}),
+        (wkv_ops, {"rwkv6_wkv_cuda": as_kernel(in_f64(rwkv6_wkv_ref)),
+                   "rwkv6_wkv_ref": in_f64(rwkv6_wkv_ref)})]
+    controls = {}
+    if "mamba" in kinds:
+        controls["scan_backward_from_zero_state"] = [
+            (scan_ops, {"mamba_ssm_ref": from_zero(mamba_ssm_ref)})]
+    if "rwkv" in kinds:
+        controls["wkv_backward_from_zero_state"] = [
+            (wkv_ops, {"rwkv6_wkv_ref": from_zero(rwkv6_wkv_ref)})]
+    if "moe" in kinds:
+        controls["loss_without_router_aux"] = [(X, {"router_topk": no_aux})]
+
+    params = init_params(TRAIN_SEED + 1, cfg, device=dev)
+    cfg32 = cfg.replace(compute_dtype="float32")
+
+    def route(patches):
+        with patched_all(patches):
+            (loss, m), grads = value_and_grad(params, cfg32, batch)
+        return float(loss), float(m["aux"]), grads
+
+    loss_k, aux_k, g_k = route(kernels)
+    loss_p, aux_p, g_p = route(plain)
+    out = {"loss_plain": loss_p, "loss_kernels": loss_k,
+           "aux_plain": aux_p, "aux_kernels": aux_k,
+           "loss_rel_err": abs(loss_k - loss_p) / abs(loss_p),
+           "grad_rel_l2": rel_l2(g_k, g_p), "routing_pinned": "moe" in kinds,
+           "routing_flips": sum(flips.values())}
+    del g_k
+    if spread:
+        _, _, g_f = route(f64)
+        out["f64_scan_plain_grad_rel_l2"] = rel_l2(g_f, g_p)
+        del g_f, g_p, params
+        free_device()
+        expect(out["loss_rel_err"] <= 1e-5 and out["grad_rel_l2"] <=
+               2 * out["f64_scan_plain_grad_rel_l2"], "f32 gate: the "
+               "kernels' step is further from the all-plain one than twice "
+               f"the f64-scan spread: {out}")
+        return out
+    expect(out["loss_rel_err"] <= 1e-5 and out["grad_rel_l2"] <= 1e-4,
+           f"f32 gate: the kernels' step differs from the all-plain one: "
+           f"{out}")
+    out["controls"] = {}
+    for name, patches in controls.items():
+        loss_c, _, g_c = route(kernels + patches)
+        c = {"loss_rel_err": abs(loss_c - loss_p) / abs(loss_p),
+             "grad_rel_l2": rel_l2(g_c, g_p)}
+        del g_c
+        out["controls"][name] = c
+        expect(c["loss_rel_err"] > 1e-5 or c["grad_rel_l2"] > 1e-4,
+               f"f32 gate passes a control ({name}): {c}")
+    del g_p, params
+    free_device()
+    return out
+
+
+def gmm_at(card: Card, shape, x_dtype, w_dtype, reps: int) -> dict:
+    """The grouped matmul at (E, M, d, f) with random inputs: raw-launch
+    ms, bound, its error against plain and ``torch.bmm`` on the weights in
+    x's dtype (cast outside the timing); and the ms of what
+    ``GroupedMatmul.backward`` runs there (dx and dw, two ``torch.bmm``,
+    with the weights' cast and dw's cast back)."""
+    import torch
+
+    from repro_torch.kernels.moe_gmm import moe_gmm_cuda, moe_gmm_ref
+    E, M, d, f = shape
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    x = torch.randn((E, M, d), generator=gen, device="cuda").to(x_dtype)
+    w = (torch.randn((E, d, f), generator=gen, device="cuda")
+         / d ** 0.5).to(w_dtype)
+    err = close(moe_gmm_cuda(x, w), moe_gmm_ref(x, w), f"moe_gmm {shape}")
+    bound, by, _, _ = gmm_bound(card, x, w)
+    wx = w.to(x_dtype)
+    dy = torch.randn((E, M, f), generator=gen, device="cuda").to(x_dtype)
+
+    def backward():
+        torch.bmm(dy, w.to(x_dtype).transpose(1, 2))
+        torch.bmm(x.transpose(1, 2), dy).to(w_dtype)
+    return {"shape": {"E": E, "M": M, "d": d, "f": f, "x": str(x_dtype),
+                      "w": str(w_dtype)},
+            "max_abs_err": err, "ms": cuda_ms(raw_gmm(x, w), reps),
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": cuda_ms(lambda: torch.bmm(x, wx), reps),
+            "library": "torch.bmm(x, w in x's dtype)",
+            "backward_ms": cuda_ms(backward, reps)}
+
+
+def scan_at(card: Card, B: int, S: int, di: int, reps: int) -> dict:
+    """The selective scan at (B, S, di) from a carried state (a training
+    segment), random inputs: raw-launch ms, bound, error against plain."""
+    import torch
+
+    from repro_torch.kernels.mamba_scan import mamba_ssm_cuda, mamba_ssm_ref
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    a = scan_inputs(gen, B, S, di, "cuda", h0=True)
+    y, h = mamba_ssm_cuda(**a)
+    want_y, want_h = mamba_ssm_ref(**a)
+    err = max(close(y, want_y, "mamba_ssm y (train)", SCAN_TOL),
+              close(h, want_h, "mamba_ssm h_final (train)", SCAN_TOL))
+    bound, by, _, _ = scan_bound(card, B, S, di, True)
+    return {"shape": {"B": B, "S": S, "di": di, "d_state": SCAN_DS,
+                      "h0": True},
+            "max_abs_err": err, "ms": cuda_ms(raw_scan(a), reps),
+            "bound_ms": bound, "bound_by": by, "library_ms": None}
+
+
+def wkv_at(card: Card, B: int, S: int, H: int, hd: int, reps: int) -> dict:
+    """The WKV kernel at (B, S, H, hd) from a carried state (a training
+    segment), random inputs: raw-launch ms, bound, error against plain."""
+    import torch
+
+    from repro_torch.kernels.rwkv6_scan import rwkv6_wkv_cuda, rwkv6_wkv_ref
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    a = wkv_inputs(gen, B, S, H, hd, "cuda", state=True)
+    y, st = rwkv6_wkv_cuda(**a)
+    want_y, want_st = rwkv6_wkv_ref(*(a[n] for n in ("r", "k", "v", "w", "u",
+                                                     "state0")))
+    err = wkv_close(y, st, want_y, want_st, "rwkv6_wkv (train)")
+    bound, by, _, _ = wkv_bound(card, B, S, H, hd, True)
+    return {"shape": {"B": B, "S": S, "H": H, "hd": hd, "state0": True},
+            "max_abs_err": err, "ms": cuda_ms(raw_wkv(a), reps),
+            "bound_ms": bound, "bound_by": by, "library_ms": None}
+
+
+def flash_at(card: Card, cfg, B: int, S: int, reps: int) -> dict:
+    """The flash kernel with its LSE at (B, S) and cfg's heads in bf16, as
+    a train step launches it: raw-launch ms, bound, error, SDPA's ms."""
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention_cuda)
+    q, k, v = fa_inputs(np.random.default_rng(24), B, S, cfg.n_heads,
+                        cfg.n_kv_heads, cfg.hd, "bfloat16", "cuda")
+    out, lse = flash_attention_cuda(q, k, v, True, return_lse=True)
+    want, want_lse = attention_ref(q, k, v, True, return_lse=True)
+    err = close(out, want, "flash_attention (train)")
+    close(lse, want_lse, "flash_attention lse (train)",
+          FA_TOL["torch.bfloat16"])
+    bound, by, _, _ = flash_bound(card, q, k, True)
+    return {"shape": {"B": B, "S": S, "H": cfg.n_heads, "Kv": cfg.n_kv_heads,
+                      "hd": cfg.hd, "lse": True},
+            "max_abs_err": err, "ms": cuda_ms(raw_flash(q, k, v, lse=True),
+                                             reps),
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": sdpa_ms(q, k, v, reps)}
+
+
+def kernel_ms_per_step(card: Card, cfg, shapes: dict, w_dtype) -> tuple:
+    """Each scan, expert-matmul and attention kernel's device ms a step:
+    its launches at each shape over the run (``.shapes``) divided by the
+    steps, times the raw-launch ms at that shape (random inputs).  Returns
+    those sums and, per kernel, the shape it ran most at with its
+    ms, bound and library time there."""
+    import torch
+    cdt = getattr(torch, cfg.compute_dtype)
+    per_step, at = {}, {}
+    for name, by_shape in shapes.items():
+        if not by_shape:
+            continue
+        total, rows = 0.0, []
+        for key, n in sorted(by_shape.items(), key=lambda kv: -kv[1]):
+            if name == "moe_gmm":
+                t = gmm_at(card, key, cdt, w_dtype, 10)
+            elif name == "mamba_ssm":
+                t = scan_at(card, *key, cfg.mamba_expand * cfg.d_model, 20)
+            elif name == "rwkv6_wkv":
+                t = wkv_at(card, *key, cfg.rwkv_heads, cfg.rwkv_head_size,
+                           20)
+            else:
+                t = flash_at(card, cfg, *key, 10)
+            rows.append({**t, "launches_per_step": n / TRAIN_STEPS})
+            total += t["ms"] * n / TRAIN_STEPS
+            free_device()
+        per_step[name] = total
+        at[name] = rows[0]
+    return per_step, at
+
+
+def scan_backward_ms(dev, cfg, profiled_segments: int = 4) -> dict:
+    """One layer's scan at the train shape under autograd (random inputs,
+    f32 as the model hands them over): the wall ms of its backward, the
+    plain per-segment recompute, with CUDA events; and the device ms of
+    that backward's kernels from ``torch.profiler`` over the first
+    ``profiled_segments`` segments' steps, scaled to the layer (every
+    segment runs the same kernels; a whole layer's ~180,000 events take
+    the profiler minutes to gather)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.mamba_scan import segmented_scan
+    from repro_torch.kernels.rwkv6_scan import segmented_wkv
+    gen = torch.Generator(device=dev).manual_seed(25)
+    if cfg.family == "ssm":
+        a = wkv_inputs(gen, TRAIN_B, TRAIN_S, cfg.rwkv_heads,
+                       cfg.rwkv_head_size, dev, state=False)
+        args = [a[n].requires_grad_() for n in ("r", "k", "v", "w", "u")]
+        chunk = cfg.rwkv_chunk
+
+        def scan(*a):
+            return segmented_wkv(*a, None, chunk)[0]
+    else:
+        di = cfg.mamba_expand * cfg.d_model
+        a = scan_inputs(gen, TRAIN_B, TRAIN_S, di, dev, h0=False)
+        args = [a[n].requires_grad_()
+                for n in ("x", "dt", "Bmat", "Cmat", "A", "D")]
+        chunk = cfg.mamba_chunk
+
+        def scan(*a):
+            return segmented_scan(*a, None, chunk)[0]
+    dy = torch.randn((TRAIN_B, TRAIN_S) + tuple(args[0].shape[2:]),
+                     generator=gen, device=dev)
+
+    def forward():
+        return scan(*args)
+    torch.autograd.grad(forward(), args, dy)           # warm-up
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    y = forward()
+    torch.cuda.synchronize()
+    start.record()
+    torch.autograd.grad(y, args, dy)
+    stop.record()
+    torch.cuda.synchronize()
+    wall = start.elapsed_time(stop)
+    steps = profiled_segments * chunk
+    short = [a[:, :steps].detach().requires_grad_() if a.dim() > 2 else a
+             for a in args]
+    y = scan(*short)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.autograd.grad(y, short, dy[:, :steps])
+        torch.cuda.synchronize()
+    dev_ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    scale = TRAIN_S / steps
+    busy = sum(e.time_range.elapsed_us() for e in dev_ev) / 1e3 * scale
+    return {"per_layer_wall_ms": wall, "per_layer_device_ms": busy,
+            "per_layer_device_events": len(dev_ev) * scale,
+            "profiled_steps": steps, "device_busy_share": busy / wall}
+
+
+def family_train_path(dev, card: Card, phase: str, profile: bool = False):
+    """A family train phase (``TRAIN_FAMILIES``): its gates (emitted as
+    their own record), then the Trainer at full width with the layer cut,
+    batch TRAIN_B x TRAIN_S, TRAIN_STEPS steps, every kernel's launches
+    counted from 0 just before the run and held to their exact count a
+    step; each kernel's device ms a step; for int8 the compression's ms;
+    for the scans the plain backward's ms.  Returns the record, the run's
+    launches per kernel and each kernel's per-launch line at its most
+    frequent shape."""
+    import torch
+
+    from repro_torch._tree import leaves
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import train
+
+    arch, n_layers, compress, gate_layers = TRAIN_FAMILIES[phase]
+    full = get_config(arch)
+    cfg, reduced = full, {}
+    if n_layers is not None:
+        reduced["n_layers"] = f"{full.n_layers} -> {n_layers}"
+        cfg = cfg.replace(n_layers=n_layers)
+    if cfg.grad_accum != 1:
+        reduced["grad_accum"] = f"{cfg.grad_accum} -> 1"
+        cfg = cfg.replace(grad_accum=1)
+    batch = SyntheticLM(cfg, TRAIN_B, TRAIN_S, seed=TRAIN_SEED,
+                        device=dev).batch(0)
+    t0 = time.perf_counter()
+    gates = {"layers": cfg.n_layers}
+    if gate_layers is not None:
+        gates = {"layers": gate_layers, "at_phase_depth": {
+            "layers": cfg.n_layers,
+            **family_gates(dev, cfg, batch, spread=True)}}
+    gates.update(family_gates(dev, cfg.replace(n_layers=gates["layers"]),
+                              batch))
+    emit({"phase": f"{phase}_gates", "arch": cfg.name, **gates,
+          "seconds": time.perf_counter() - t0})
+    del batch
+
+    t0 = time.perf_counter()
+    tr = train.Trainer(cfg, lr=TRAIN_LR, compress=compress, seed=TRAIN_SEED,
+                       device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in leaves(tr.params))
+    n_leaves = len(leaves(tr.params))
+    kernels = train_kernels()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.launches = 0                       # this path's counts start here
+        if hasattr(k, "shapes"):
+            k.shapes.clear()
+    ends, lines = [], []
+
+    def log(line: str) -> None:             # after each step's logging sync
+        ends.append(time.perf_counter())
+        lines.append(line)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    losses = tr.run(TRAIN_STEPS, TRAIN_B, TRAIN_S, seed=TRAIN_SEED,
+                    log_every=1, log=log)
+    launches = {name: k.launches for name, k in kernels.items()}
+    shapes = {name: dict(kernels[name].shapes) for name in
+              ("moe_gmm", "mamba_ssm", "rwkv6_wkv", "flash_attention")}
+    quant_shapes = dict(kernels["quantize_int8"].shapes)
+    peak = torch.cuda.max_memory_allocated()
+
+    per_step = launches_per_step(cfg, n_leaves, compress)
+    for name, n in per_step.items():
+        expect(launches[name] == n * TRAIN_STEPS,
+               f"{phase}: {name} launched {launches[name]}x in "
+               f"{TRAIN_STEPS} steps, expected {n} a step")
+    gnorms = [float(ln.split("gnorm ")[1].split()[0]) for ln in lines]
+    expect(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)) and
+           all(np.isfinite(gnorms)), f"{phase}: losses {losses}, gnorms "
+           f"{gnorms}")
+    step_s = [b - a for a, b in zip([start] + ends[:-1], ends)]
+    median_s = float(np.median(step_s[1:]))
+    counts = cfg.param_counts()
+    k = kinds_of(cfg)
+    idle_experts = k.get("moe", 0) * (cfg.n_experts - cfg.moe_top_k) * \
+        3 * cfg.d_model * cfg.d_ff
+    matmul_params = counts["mixer"] + counts["channel"] + counts["head"] - \
+        idle_experts
+    attn_flop = 3 * 4 * TRAIN_B * cfg.n_heads * cfg.hd * \
+        TRAIN_S * (TRAIN_S + 1) / 2 * k.get("attn", 0)
+    flop = 6 * matmul_params * TRAIN_B * TRAIN_S + attn_flop
+    record = {
+        "phase": phase, "arch": cfg.name, "layers": cfg.n_layers,
+        "layer_kinds": k, "reduced": reduced, "d_model": cfg.d_model,
+        "params": n_params, "param_tensors": n_leaves,
+        "param_dtype": cfg.param_dtype, "compute_dtype": cfg.compute_dtype,
+        "remat": cfg.remat, "compress": compress, "batch": TRAIN_B,
+        "seq": TRAIN_S, "lr": TRAIN_LR, "steps": TRAIN_STEPS,
+        "init_seconds": init_s, "losses": losses, "grad_norms": gnorms,
+        "step_seconds": step_s, "median_step_s_2_to_5": median_s,
+        "tokens_per_s": TRAIN_B * TRAIN_S / median_s,
+        "model_flop_per_step": flop, "active_matmul_params": matmul_params,
+        "attention_flop_per_step": attn_flop,
+        "achieved_tflop_per_s": flop / median_s / 1e12,
+        "mfu": flop / median_s / PEAK_FLOPS["torch.bfloat16"],
+        "max_memory_gb": peak / 1e9,
+        "launches": launches, "launches_per_step": per_step}
+    if compress != "none":
+        comp_ms = compress_ms(tr)
+        record["compress_ms_per_step"] = comp_ms
+        record["compress_share_of_step"] = comp_ms / 1e3 / median_s
+    k_scan = k.get("mamba", 0) + k.get("rwkv", 0)
+    if profile and not k_scan:
+        # a scan phase's step is ~180,000 device events a layer, which the
+        # profiler takes minutes to gather: its breakdown is the scan
+        # backward's below (one layer, profiled over 256 steps)
+        record["profile"] = profile_run(
+            lambda: tr.run(tr.step + 1, TRAIN_B, TRAIN_S, seed=TRAIN_SEED,
+                           log=lambda *_: None),
+            f"chip_smoke_profile_{phase}.txt")
+    w_dtype = torch.float32 if compress != "none" else \
+        getattr(torch, cfg.compute_dtype)
+    del tr
+    free_device()
+    kernel_ms, at = kernel_ms_per_step(card, cfg, shapes, w_dtype)
+    record["kernel_ms_per_step"] = kernel_ms
+    record["kernel_share_of_step"] = {n: ms / 1e3 / median_s
+                                      for n, ms in kernel_ms.items()}
+    if quant_shapes:
+        record.update(quantize_step(quant_shapes, median_s))
+    if k_scan:
+        bwd = scan_backward_ms(dev, cfg)
+        bwd["per_step_wall_ms"] = bwd["per_layer_wall_ms"] * k_scan
+        bwd["share_of_step"] = bwd["per_step_wall_ms"] / 1e3 / median_s
+        record["scan_backward"] = bwd
+    free_device()
+    return record, launches, at
+
+
+def with_paths(line: dict, by_path: dict, train_at: dict) -> dict:
+    """A kernels-line entry with the launches of every path that ran the
+    kernel (``launches_by_path``, each counted from 0 just before its
+    run; ``launches`` their sum) and, per train phase, its per-launch ms,
+    bound and library ms at the shape that phase ran it at most."""
+    paths = {line["path"]: line["launches"], **by_path.get(line["name"], {})}
+    line.update(launches=sum(paths.values()), launches_by_path=paths)
+    if line["name"] in train_at:
+        line["train_paths"] = train_at[line["name"]]
+    return line
+
+
 def free_device() -> None:
     """Release a finished phase's tensors before the next phase's weights
     are drawn."""
@@ -3348,10 +3916,27 @@ def main() -> int:
     record["phase_seconds"] = time.perf_counter() - t0
     emit(record)
     quant = quantize_lines(card, launches)
+    by_path = {name: {"train": n} for name, n in launches.items()}
+    train_at: dict = {}
+    for phase in TRAIN_FAMILIES:
+        t0 = time.perf_counter()
+        record, launches, at = family_train_path(dev, card, phase,
+                                                 profile=profile)
+        record["phase_seconds"] = time.perf_counter() - t0
+        emit(record)
+        for name, n in launches.items():
+            if n:
+                by_path.setdefault(name, {})[phase] = n
+        for name, line in at.items():
+            train_at.setdefault(name, {})[phase] = line
+        del record
+        free_device()
 
-    emit({"kernels": [vpc, chacha, lines["flash_attention"],
-                      lines["moe_gmm"], *quant, lines["mamba_ssm"],
-                      lines["rwkv6_wkv"]]})
+    print(card.smi, flush=True)             # again, within the tail
+    emit({"kernels": [vpc, chacha] + [
+        with_paths(line, by_path, train_at)
+        for line in (lines["flash_attention"], lines["moe_gmm"], *quant,
+                     lines["mamba_ssm"], lines["rwkv6_wkv"])]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": card.name,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -1,4 +1,5 @@
-"""Plain PyTorch version of the selective scan (sequential, f32).
+"""Plain PyTorch version of the selective scan (sequential, f32; f64 for
+f64 x, which the gradient checks use).
 
 The counterpart of the JAX package's ``kernels/mamba_scan/ref.py``,
 extended as the model's ``ssm_scan`` (``models/mamba.py``) needs it: it
@@ -16,21 +17,22 @@ import torch
 def mamba_ssm_ref(x, dt, Bmat, Cmat, A, D, h0=None):
     """x, dt: (B, S, di); Bmat, Cmat: (B, S, ds); A: (di, ds); D: (di,);
     h0: (B, di, ds) or None.  Returns y (B, S, di) f32 and h_final (B, di,
-    ds) f32."""
+    ds) f32 (f64 for f64 x)."""
     B, S, di = x.shape
     ds = Bmat.shape[-1]
-    h = torch.zeros((B, di, ds), dtype=torch.float32, device=x.device) \
-        if h0 is None else h0.float()
-    A, D = A.float(), D.float()
+    acc = torch.promote_types(x.dtype, torch.float32)
+    h = torch.zeros((B, di, ds), dtype=acc, device=x.device) \
+        if h0 is None else h0.to(acc)
+    A, D = A.to(acc), D.to(acc)
     ys = []
     for t in range(S):
-        xt, dtt, Bt, Ct = (a[:, t].float() for a in (x, dt, Bmat, Cmat))
+        xt, dtt, Bt, Ct = (a[:, t].to(acc) for a in (x, dt, Bmat, Cmat))
         dA = torch.exp(dtt[..., None] * A[None])
         dBx = (dtt * xt)[..., None] * Bt[:, None, :]
         h = dA * h + dBx
         ys.append(torch.einsum("bds,bs->bd", h, Ct) + D[None] * xt)
     y = torch.stack(ys, 1) if ys else torch.zeros(
-        (B, 0, di), dtype=torch.float32, device=x.device)
+        (B, 0, di), dtype=acc, device=x.device)
     return y, h
 
 

@@ -1,7 +1,8 @@
 """Plain PyTorch version of the grouped matmul (one f32 einsum).
 
 The counterpart of the JAX package's ``kernels/moe_gmm/ref.py``:
-``out[e] = x[e] @ w[e]`` in f32, cast back to ``x.dtype``.  The weights are
+``out[e] = x[e] @ w[e]`` in f32 (in f64 for f64 x, which the gradient
+checks use), cast back to ``x.dtype``.  The weights are
 first rounded to ``x.dtype``, as the model casts them at use
 (``p["gate"].astype(x.dtype)``); for weights already in ``x.dtype`` that is
 the JAX oracle exactly.  The CPU path of :func:`~.ops.grouped_matmul`, the
@@ -15,8 +16,9 @@ import torch
 
 def moe_gmm_ref(x, w):
     """x: (E, M, d); w: (E, d, f) -> (E, M, f) in x.dtype."""
-    return torch.einsum("ecd,edf->ecf", x.float(),
-                        w.to(x.dtype).float()).to(x.dtype)
+    acc = torch.promote_types(x.dtype, torch.float32)
+    return torch.einsum("ecd,edf->ecf", x.to(acc),
+                        w.to(x.dtype).to(acc)).to(x.dtype)
 
 
 __all__ = ["moe_gmm_ref"]

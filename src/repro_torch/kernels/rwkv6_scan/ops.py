@@ -7,8 +7,15 @@ f32, state_final (B, H, hd, hd) f32):
   - anything else raises.  There is no fallback from one to the other.
 With ``state_out`` given, the final state is written there (it may be
 ``state`` itself: the decode updates its cache in place) and returned.
+
+``segmented_wkv`` is the training path: the same recurrence over
+``chunk``-step segments under autograd (one launch a segment on the card;
+the backward recomputes each segment with the plain version from its saved
+starting state, :mod:`repro_torch.kernels._segments`).
 """
 from __future__ import annotations
+
+from repro_torch.kernels._segments import segmented
 
 from .kernel import rwkv6_wkv_cuda
 from .ref import rwkv6_wkv_ref
@@ -27,4 +34,12 @@ def wkv(r, k, v, w, u, state=None, state_out=None):
     raise ValueError(f"wkv: no kernel for device {r.device}")
 
 
-__all__ = ["wkv"]
+def segmented_wkv(r, k, v, w, u, state=None, chunk: int = 64):
+    """The WKV recurrence over ``chunk``-step segments, differentiable with
+    respect to r, k, v, w, u and the state (the JAX package's checkpointed
+    ``wkv_scan``).  Arguments as :func:`wkv`; returns (y, state_final),
+    new tensors."""
+    return segmented(wkv, rwkv6_wkv_ref, chunk, (r, k, v, w), (u,), state)
+
+
+__all__ = ["segmented_wkv", "wkv"]

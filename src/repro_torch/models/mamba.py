@@ -10,16 +10,19 @@ layers use it: the JAX package's ``models/mamba.py`` on tensors.
     out    = out_proj(y * silu(z))
 
 The scan goes through the hand-written CUDA kernel on the card
-(:mod:`repro_torch.kernels.mamba_scan`) and its plain version on the CPU,
-in prefill and in every decode step (a scan of one step from the carried
-state).  Rounding points kept from the JAX package: ``in_proj``, the conv
-and ``silu`` in the compute dtype; B and C cast to f32; ``softplus(
-dt_proj(dt) + dt_bias)`` in f32; the scan in f32 on ``x.float()``;
-``y.to(u.dtype) * silu(z)`` before ``out_proj``.  ``F.softplus`` returns
+(:mod:`repro_torch.kernels.mamba_scan`) and its plain version on the CPU:
+once a layer in prefill and in every decode step (a scan of one step from
+the carried state); in training, where autograd records it, once a
+``cfg.mamba_chunk``-step segment, as the JAX package's checkpointed
+``lax.scan`` cuts it (:func:`~repro_torch.kernels.mamba_scan.
+segmented_scan`).  Rounding points kept from the JAX package:
+``in_proj``, the conv and ``silu`` in the compute dtype; B and C cast to
+f32; ``softplus(dt_proj(dt) + dt_bias)`` in f32; the scan in f32 on
+``x.float()``; ``y.to(u.dtype) * silu(z)`` before ``out_proj``.
+``F.softplus`` returns
 its input above 20 where ``jax.nn.softplus`` adds log1p(exp(-x)) < e^-20,
-which is below half an f32 step of any input above 20: the same numbers.
-The JAX package's chunked, checkpointed ``lax.scan`` is for the backward
-pass of training; serving needs none of it.
+which is below half an f32 step of any input above 20: the same numbers
+(and the same gradient, sigmoid(x), which rounds to 1 in f32 there).
 """
 from __future__ import annotations
 
@@ -28,7 +31,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.mamba_scan import selective_scan
+from repro_torch.kernels.mamba_scan import segmented_scan, selective_scan
 
 from .layers import linear, linear_init, normal
 
@@ -78,14 +81,20 @@ def _causal_conv(p, x, conv_state=None):
     return y, xp[:, -(dc - 1):, :].contiguous()
 
 
-def ssm_scan(x, dt, Bmat, Cmat, A, D, h0=None, h_out=None):
+def ssm_scan(x, dt, Bmat, Cmat, A, D, h0=None, h_out=None,
+             chunk: int = 64):
     """Selective scan. x, dt: (B, S, di); Bmat, Cmat: (B, S, ds); A: (di,
     ds); D: (di,); h0: (B, di, ds) or None (zeros).  Returns (y (B, S, di),
     h_final), f32; with ``h_out`` given the final state is written there
-    (it may be ``h0``)."""
-    return selective_scan(x.contiguous(), dt.contiguous(), Bmat.contiguous(),
-                          Cmat.contiguous(), A.contiguous(), D.contiguous(),
-                          h0, h_out)
+    (it may be ``h0``).  Where autograd records an input, the scan runs in
+    ``chunk``-step segments and is differentiable; otherwise it is one
+    scan."""
+    args = [t.contiguous() for t in (x, dt, Bmat, Cmat, A, D)]
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (*args, h0)):
+        y, h = segmented_scan(*args, h0, chunk)
+        return y, (h if h_out is None else h_out.copy_(h))
+    return selective_scan(*args, h0, h_out)
 
 
 def mamba_apply(p, u, cfg, conv_state=None, ssm_state=None):
@@ -109,7 +118,7 @@ def mamba_apply(p, u, cfg, conv_state=None, ssm_state=None):
     A = -torch.exp(p["A_log"].float())                      # (di, ds)
 
     y, ssm_state = ssm_scan(x.float(), dt, Bmat, Cmat, A, p["D"].float(),
-                            ssm_state, ssm_state)
+                            ssm_state, ssm_state, cfg.mamba_chunk)
     out = linear(p["out_proj"], y.to(u.dtype) * F.silu(z))
     return out, (conv_state, ssm_state)
 

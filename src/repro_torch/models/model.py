@@ -25,9 +25,12 @@ result:
     read the carried one) and the RWKV blocks' last tokens;
   - ``remat="full"`` is ``torch.utils.checkpoint`` per layer (the JAX
     package's ``jax.checkpoint``); no config uses ``"dots"``, which raises.
-Training runs the families whose layers are attention + MLP (dense, and
-the ``embeds`` frontend of audio and VLM); a MoE, Mamba or RWKV layer
-raises ``NotImplementedError`` naming its ROADMAP item.
+Training runs every layer kind.  Its forward goes through the same kernels
+as serving: the MoE's expert matmuls (three a MoE layer, each with a
+``torch.bmm`` backward), and the Mamba and RWKV scans once a
+``cfg.mamba_chunk`` / ``cfg.rwkv_chunk``-step segment, each segment
+recomputed by the plain scan in the backward; with ``remat="full"`` the
+layer's forward runs again in the backward, and its launches with it.
 """
 from __future__ import annotations
 
@@ -81,37 +84,27 @@ def layer_init(gen, cfg, i: int, dtype, device=None):
     return p
 
 
-#: layer kinds training does not run yet, and the ROADMAP item of each
-_UNTRAINED = {
-    "moe": "MoE training (the aux and z losses, a backward for the moe_gmm "
-           "path): ROADMAP Queue 1 #1",
-    "mamba": "Mamba training (the chunked, rematerialised ssm_scan under "
-             "autograd): ROADMAP Queue 1 #1",
-    "rwkv": "RWKV training (the chunked, rematerialised wkv_scan under "
-            "autograd): ROADMAP Queue 1 #1",
-}
-_UNTRAINED["rwkv_cm"] = _UNTRAINED["rwkv"]
-
-
-def _check_trainable(cfg, kinds) -> None:
-    """Raise naming the ROADMAP item for a layer kind in ``kinds`` (pairs
-    of mixer and channel kinds) that training does not run."""
-    for kind in (k for pair in kinds for k in pair):
-        if kind in _UNTRAINED:
-            raise NotImplementedError(
-                f"{cfg.name}: {kind} layers do not train yet: "
-                f"{_UNTRAINED[kind]}")
-
-
 def layer_apply(p, x, cfg, i: int, positions):
-    """Full-sequence layer for training (attention + MLP). Returns (x,
-    aux_loss); the aux loss of an MLP layer is 0."""
-    _check_trainable(cfg, [(cfg.mixer_kind(i), cfg.channel_kind(i))])
-    h = norm_apply(cfg.norm, p["norm1"], x)
-    x = x + A.attn_train(p["attn"], h, cfg, positions)
-    h = norm_apply(cfg.norm, p["norm2"], x)
+    """Full-sequence layer for training.  Returns (x, aux_loss); the aux
+    loss is the MoE router's (0 for other channels)."""
+    mix, ch = cfg.mixer_kind(i), cfg.channel_kind(i)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + mlp(p["mlp"], h, cfg.mlp_kind), aux
+    h = norm_apply(cfg.norm, p["norm1"], x)
+    if mix == "attn":
+        h = A.attn_train(p["attn"], h, cfg, positions)
+    elif mix == "mamba":
+        h, _ = M.mamba_apply(p["mamba"], h, cfg)
+    else:
+        h, _ = R.timemix_apply(p["rwkv_tm"], h, cfg)
+    x = x + h
+    h = norm_apply(cfg.norm, p["norm2"], x)
+    if ch == "mlp":
+        h = mlp(p["mlp"], h, cfg.mlp_kind)
+    elif ch == "moe":
+        h, aux = X.moe_apply(p["moe"], h, cfg)
+    else:
+        h, _ = R.channelmix_apply(p["rwkv_cm"], h, cfg)
+    return x + h, aux
 
 
 def layer_cache_init(cfg, i: int, B: int, max_len: int, dtype, device=None):
@@ -233,7 +226,6 @@ def forward_hidden(params, cfg, batch):
 def apply_train(params, cfg, batch):
     """batch: tokens|embeds, labels (B, S) int (-100 = masked) ->
     (loss, {"xent", "aux", "loss"})."""
-    _check_trainable(cfg, cfg.layer_kinds())
     x, aux = forward_hidden(params, cfg, batch)
     x = norm_apply(cfg.norm, params["final_norm"], x)
     xent = chunked_softmax_xent(x, params["head"]["w"], batch["labels"],

@@ -1,4 +1,4 @@
-"""Mixture-of-Experts layer for serving: the JAX package's
+"""Mixture-of-Experts layer for serving and training: the JAX package's
 ``models/moe.py`` as plain functions on tensors.
 
 Top-k routing with *grouped*, capacity-bounded sort dispatch (GShard-style):
@@ -7,7 +7,11 @@ happens inside each group along its own token axis.  The expert FFN runs on
 the (E, G * C, d) rows of all groups at once through the hand-written CUDA
 grouped-matmul kernel on the card (:mod:`repro_torch.kernels.moe_gmm`) and
 its plain version on the CPU: three launches per layer (gate, up, down),
-``silu(h) * u`` between them in plain PyTorch.
+``silu(h) * u`` between them in plain PyTorch.  Under autograd each takes
+a ``torch.bmm`` backward (:class:`~repro_torch.kernels.moe_gmm.ops.
+GroupedMatmul`), and the dispatch's scatter, the sorted top k and the
+combine's gathers carry the gradient to x, the gates and the router; the
+router's load-balance and z losses come back as the aux loss.
 
 Rounding points kept from the JAX package: the router computes in f32 from
 ``x.float()``; the gates are cast to the compute dtype before the combine;

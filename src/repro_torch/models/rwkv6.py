@@ -13,21 +13,23 @@ is all a layer carries from one token to the next, beside the last token
 of each block's input.
 
 The recurrence goes through the hand-written CUDA kernel on the card
-(:mod:`repro_torch.kernels.rwkv6_scan`) and its plain version on the CPU,
-in prefill and in every decode step (a scan of one step from the carried
-state, written back in place).  Rounding points kept from the JAX package:
+(:mod:`repro_torch.kernels.rwkv6_scan`) and its plain version on the CPU:
+once a layer in prefill and in every decode step (a scan of one step from
+the carried state, written back in place); in training, where autograd
+records it, once a ``cfg.rwkv_chunk``-step segment, as the JAX package's
+checkpointed ``wkv_scan`` cuts it (:func:`~repro_torch.kernels.rwkv6_scan.
+segmented_wkv`).  Rounding points kept from the JAX package:
 the dd-lerp and both LoRAs in the compute dtype; the decay LoRA cast to f32
 before ``exp(-exp(.))``; r, k and v cast to f32 after their linear; the
 group norm in f32, cast back to the compute dtype; g = silu in the compute
-dtype.  The JAX package's chunked, checkpointed ``lax.scan`` is for the
-backward pass of training; serving needs none of it.
+dtype.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.rwkv6_scan import wkv
+from repro_torch.kernels.rwkv6_scan import segmented_wkv, wkv
 
 from .layers import linear, linear_init, normal
 
@@ -131,9 +133,16 @@ def timemix_apply(p, x, cfg, x_prev_last=None, state=None):
 
     A given ``state`` is updated **in place** to the final state and
     returned (the JAX package returns a new array); without one the scan
-    starts from zero and the final state is a new tensor."""
+    starts from zero and the final state is a new tensor.  Where autograd
+    records an input, the scan runs in ``cfg.rwkv_chunk``-step segments and
+    is differentiable."""
     r, k, v, w, u, g = timemix_inputs(p, x, cfg, x_prev_last)
-    y, state = wkv(r, k, v, w, u, state, state)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (r, k, v, w, u, state)):
+        y, st = segmented_wkv(r, k, v, w, u, state, cfg.rwkv_chunk)
+        state = st if state is None else state.copy_(st)
+    else:
+        y, state = wkv(r, k, v, w, u, state, state)
     return timemix_out(p, x, cfg, y, g), (x[:, -1, :], state)
 
 
