@@ -81,18 +81,22 @@ prints one JSON line per phase:
                  error within 0.05 and delivered ratio at least 0.95, both
                  fingerprints the JAX package's; prints them and the wall
                  seconds;
-  6. serve phases — ``Platform(ServeBackend(cfg, ...))`` four times, each
+  6. serve phases — ``Platform(ServeBackend(cfg, ...))`` five times, each
                  model's weights random f32 from a seeded
                  ``torch.Generator`` and freed before the next phase:
                  ``serve`` (qwen3-8b, 36 layers, 12 prompts), ``serve_hybrid``
                  (jamba-v0.1-52b at full width cut to one period of 8 layers:
                  7 Mamba, 1 attention, 4 MoE; 8 prompts), ``serve_moe``
                  (granite-moe-1b-a400m whole, 24 attention + MoE layers;
-                 8 prompts) and ``serve_rwkv`` (rwkv6-3b whole, 32 RWKV-6
-                 layers; 8 prompts).  Two tenants (gold 2 : free 1)
-                 deploy cache >> prefill >> decode; prompts of 256-1,536
-                 tokens with 16 new tokens each, then one prompt again (a
-                 cache hit).  Checks
+                 8 prompts), ``serve_rwkv`` (rwkv6-3b whole, 32 RWKV-6
+                 layers; 8 prompts) and ``serve_stablelm`` (stablelm-12b
+                 whole, 40 LayerNorm attention layers of head dim 160;
+                 8 prompts; with the flash kernel's ms at its prefill
+                 shape beside SDPA's and the bound,
+                 ``flash_attention_at_prefill``).  Two tenants (gold 2 :
+                 free 1) deploy cache >> prefill >> decode; prompts of
+                 256-1,536 tokens with 16 new tokens each, then one prompt
+                 again (a cache hit).  Checks
                  the exact launches of each kernel (per prefill group: one
                  ``flash_attention`` per attention layer, three ``moe_gmm``
                  per MoE layer, one ``mamba_ssm`` per Mamba layer, one
@@ -141,14 +145,17 @@ prints one JSON line per phase:
                  from a seeded generator: ``train_moe`` (granite whole,
                  int8 compression), ``train_hybrid`` (jamba cut to its
                  first two layers, Mamba + MLP and Mamba + 16-expert MoE,
-                 grad_accum 1) and ``train_rwkv`` (rwkv6-3b cut to 8
-                 layers).  Each first emits ``<phase>_gates``, on their own
+                 grad_accum 1), ``train_rwkv`` (rwkv6-3b cut to 8
+                 layers) and ``train_stablelm`` (stablelm-12b cut to 4
+                 layers, head dim 160, int8 compression, grad_accum 1).
+                 Each first emits ``<phase>_gates``, on their own
                  weights: one step's loss and whole gradient in f32
                  compute with the kernels against every kernel replaced by
                  its plain version (1e-5 relative, 1e-4 relative L2; the
                  plain route takes the kernels' experts), where a scan
-                 backward recomputing every segment from a zero state and
-                 a loss without the router's aux term must fail; RWKV's
+                 backward recomputing every segment from a zero state, a
+                 loss without the router's aux term and the attention
+                 kernel's LSE shifted by log 2 must fail; RWKV's
                  at 2 layers, and its 8 within twice the spread of a
                  plain route whose scan runs in f64 (through 8 random
                  layers f32 rounding alone exceeds 1e-4).  Then the
@@ -168,12 +175,13 @@ prints one JSON line per phase:
      run (``launches_by_path``; ``launches`` their sum), time, plain time,
      bound and, where one PyTorch call computes the same function, that
      call's time; the train phases' per-launch ms, bound and library ms at
-     their own shapes (``train_paths``);
+     their own shapes (``train_paths``), and serve_stablelm's for the
+     flash kernel at head dim 160 (``serve_paths``);
 and last ``{"ok": true, "device": {...}}``.  Phase 3 also holds the
 flash-attention kernel against its plain version over causal and not,
-G in {1, 2, 4, 8}, hd in {64, 128}, S in {1, 7, 63, 65, 128, 129, 1000,
-1237, 2051}, B in {1, 4}, bf16 and f32 (the reference's tolerances: 3e-2
-and 2e-5), 576 cases; the grouped matmul over E in {1, 16, 32}, M in {1,
+G in {1, 2, 4, 8}, hd in {64, 128, 160}, S in {1, 7, 63, 65, 128, 129,
+1000, 1237, 2051}, B in {1, 4}, bf16 and f32 (the reference's tolerances:
+3e-2 and 2e-5), 864 cases; the grouped matmul over E in {1, 16, 32}, M in {1,
 2, 7, 63, 64, 65, 200, 448, 800}, six (d, f) widths and its three dtype
 routes (same tolerances), 432 cases; and the selective
 scan over B in {1, 4}, S in {1, 7, 31, 32, 33, 128, 1000}, di in {64, 100,
@@ -292,6 +300,7 @@ SERVE_PHASES = {
     "serve_hybrid": ("jamba-v0.1-52b", 8, 8),
     "serve_moe": ("granite-moe-1b-a400m", None, 8),
     "serve_rwkv": ("rwkv6-3b", None, 8),
+    "serve_stablelm": ("stablelm-12b", None, 8),
 }
 SERVE_PROMPT = (256, 1536)          # prompt lengths, inclusive
 SERVE_MAX_NEW = 16
@@ -308,7 +317,7 @@ VPC_EDGE_N = (1, 513, 4099)
 #: (tests/test_kernels.py: assert_allclose atol = rtol)
 #: (S 63, 65 and 129 straddle the bf16 body's 64-key tiles and, at G 4 and
 #: 8, its 32- and 16-query tiles; 1,237 is serve's prefill group)
-FA_SWEEP = dict(causal=(True, False), G=(1, 2, 4, 8), hd=(64, 128),
+FA_SWEEP = dict(causal=(True, False), G=(1, 2, 4, 8), hd=(64, 128, 160),
                 S=(1, 7, 63, 65, 128, 129, 1000, 1237, 2048 + 3), B=(1, 4),
                 dtype=("bfloat16", "float32"))
 FA_KV = 2
@@ -379,16 +388,20 @@ TRAIN_SEED = 16
 #: 2.82 B of them the MoE; f32 masters, bf16 copies and gradients, f32
 #: moments ~60 GB; int8's f32 gradients and EF would need ~75 GB), its
 #: grad_accum 4 -> 1; RWKV-6 cut to 8 of 32 layers (1.0 B, ~16 GB) for
-#: time: its backward recomputes 4,096 plain scan steps a layer.  The last
-#: field is the depth of the f32 gate where it is not the phase's: through
-#: 8 random RWKV layers f32 rounding of the scan alone moves the gradient
-#: by 8.3e-4 relative L2 (a plain route with the scan in f64 against the
-#: f32 one), above the gate's 1e-4, and by 3.6e-6 through 2 (PERF.md
-#: section 6); the 8 layers are held to twice that spread instead
+#: time: its backward recomputes 4,096 plain scan steps a layer; StableLM
+#: (head dim 160, LayerNorm) cut to 4 of 40 layers with int8 (2.14 B, five
+#: f32 copies ~43 GB; all 40 would need ~240 GB), its grad_accum 2 -> 1
+#: (a batch of one sequence).  The last field is the depth of the f32
+#: gate where it is not the phase's: through 8 random RWKV layers f32
+#: rounding of the scan alone moves the gradient by 8.3e-4 relative L2 (a
+#: plain route with the scan in f64 against the f32 one), above the gate's
+#: 1e-4, and by 3.6e-6 through 2 (PERF.md section 6); the 8 layers are
+#: held to twice that spread instead
 TRAIN_FAMILIES = {
     "train_moe": ("granite-moe-1b-a400m", None, "int8", None),
     "train_hybrid": ("jamba-v0.1-52b", 2, "none", None),
     "train_rwkv": ("rwkv6-3b", 8, "none", 2),
+    "train_stablelm": ("stablelm-12b", 4, "int8", None),
 }
 #: the card's restart check: relative loss difference after the restore
 #: (the embedding's backward accumulates with atomics)
@@ -3337,18 +3350,22 @@ def family_gates(dev, cfg, batch, spread: bool = False) -> dict:
     against every kernel replaced by its plain version (1e-5 relative
     loss, 1e-4 relative L2), and controls that must fail that gate: the
     scans' backward recomputing every segment from a zero state (not from
-    the state the segment started from), and a loss without the MoE
-    router's aux term.  The all-plain route takes the experts the kernels'
-    forward chose (routing flips between two summation orders on
+    the state the segment started from), a loss without the MoE
+    router's aux term, and the attention kernel's LSE handed to the
+    backward shifted by log 2.  The all-plain route takes the experts the
+    kernels' forward chose (routing flips between two summation orders on
     near-ties; ``routing_flips`` counts the (token, layer) pairs whose own
     top k would differ).  With ``spread``, where f32 rounding alone moves
     the gradient by more than 1e-4, the gradient is held instead within
     twice the spread between the plain route and one whose scans run in
     f64, with no controls.  At most two gradient trees are alive at
     once."""
+    import math
+
     import torch
 
-    from repro_torch.kernels.flash_attention import attention_ref
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention_cuda)
     from repro_torch.kernels.mamba_scan import mamba_ssm_ref
     from repro_torch.kernels.mamba_scan import ops as scan_ops
     from repro_torch.kernels.moe_gmm import moe_gmm_ref
@@ -3382,6 +3399,10 @@ def family_gates(dev, cfg, batch, spread: bool = False) -> dict:
     def no_aux(p, x, cfg_):
         gates, idx, aux = recording(p, x, cfg_)
         return gates, idx, aux * 0.0
+
+    def shifted_lse(q, k, v, causal=True, return_lse=False):
+        out, lse = flash_attention_cuda(q, k, v, causal, return_lse=True)
+        return (out, lse + math.log(2.0)) if return_lse else out
 
     def as_kernel(scan):
         """``scan`` in a kernel wrapper's place: the wrapper's last
@@ -3424,6 +3445,9 @@ def family_gates(dev, cfg, batch, spread: bool = False) -> dict:
             (wkv_ops, {"rwkv6_wkv_ref": from_zero(rwkv6_wkv_ref)})]
     if "moe" in kinds:
         controls["loss_without_router_aux"] = [(X, {"router_topk": no_aux})]
+    if "attn" in kinds:
+        controls["attention_lse_plus_log2"] = [(A, {"flash_attention":
+                                                    shifted_lse})]
 
     params = init_params(TRAIN_SEED + 1, cfg, device=dev)
     cfg32 = cfg.replace(compute_dtype="float32")
@@ -3536,25 +3560,30 @@ def wkv_at(card: Card, B: int, S: int, H: int, hd: int, reps: int) -> dict:
             "bound_ms": bound, "bound_by": by, "library_ms": None}
 
 
-def flash_at(card: Card, cfg, B: int, S: int, reps: int) -> dict:
-    """The flash kernel with its LSE at (B, S) and cfg's heads in bf16, as
-    a train step launches it: raw-launch ms, bound, error, SDPA's ms."""
+def flash_at(card: Card, cfg, B: int, S: int, reps: int,
+             lse: bool = True) -> dict:
+    """The flash kernel at (B, S) and cfg's heads in bf16, causal, with its
+    LSE as a train step launches it or without as a prefill does (random
+    inputs): raw-launch ms, bound, error, and on the same inputs the plain
+    version's and SDPA's ms."""
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention_cuda)
     q, k, v = fa_inputs(np.random.default_rng(24), B, S, cfg.n_heads,
                         cfg.n_kv_heads, cfg.hd, "bfloat16", "cuda")
-    out, lse = flash_attention_cuda(q, k, v, True, return_lse=True)
+    out, got_lse = flash_attention_cuda(q, k, v, True, return_lse=True)
     want, want_lse = attention_ref(q, k, v, True, return_lse=True)
-    err = close(out, want, "flash_attention (train)")
-    close(lse, want_lse, "flash_attention lse (train)",
+    err = close(out, want, f"flash_attention at ({B}, {S})")
+    close(got_lse, want_lse, f"flash_attention lse at ({B}, {S})",
           FA_TOL["torch.bfloat16"])
-    bound, by, _, _ = flash_bound(card, q, k, True)
+    del out, got_lse, want, want_lse
+    bound, by, nbytes, flops = flash_bound(card, q, k, lse)
     return {"shape": {"B": B, "S": S, "H": cfg.n_heads, "Kv": cfg.n_kv_heads,
-                      "hd": cfg.hd, "lse": True},
-            "max_abs_err": err, "ms": cuda_ms(raw_flash(q, k, v, lse=True),
+                      "hd": cfg.hd, "lse": lse},
+            "max_abs_err": err, "ms": cuda_ms(raw_flash(q, k, v, lse=lse),
                                              reps),
-            "bound_ms": bound, "bound_by": by,
-            "library_ms": sdpa_ms(q, k, v, reps)}
+            "plain_ms": cuda_ms(lambda: attention_ref(q, k, v, True), 3),
+            "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+            "flops": flops, "library_ms": sdpa_ms(q, k, v, reps)}
 
 
 def kernel_ms_per_step(card: Card, cfg, shapes: dict, w_dtype) -> tuple:
@@ -3786,15 +3815,18 @@ def family_train_path(dev, card: Card, phase: str, profile: bool = False):
     return record, launches, at
 
 
-def with_paths(line: dict, by_path: dict, train_at: dict) -> dict:
+def with_paths(line: dict, by_path: dict, at: dict) -> dict:
     """A kernels-line entry with the launches of every path that ran the
     kernel (``launches_by_path``, each counted from 0 just before its
-    run; ``launches`` their sum) and, per train phase, its per-launch ms,
-    bound and library ms at the shape that phase ran it at most."""
+    run; ``launches`` their sum) and, per train phase (``train_paths``)
+    and per serve phase timed at its own shapes (``serve_paths``), its
+    per-launch ms, bound and library ms at the shape that phase ran it at
+    most."""
     paths = {line["path"]: line["launches"], **by_path.get(line["name"], {})}
     line.update(launches=sum(paths.values()), launches_by_path=paths)
-    if line["name"] in train_at:
-        line["train_paths"] = train_at[line["name"]]
+    for phase, entry in at.get(line["name"], {}).items():
+        key = "train_paths" if phase.startswith("train") else "serve_paths"
+        line.setdefault(key, {})[phase] = entry
     return line
 
 
@@ -3884,7 +3916,9 @@ def main() -> int:
     vpc = vpc_line(card, args, vpc_launches)
     free_device()
 
-    lines = {}
+    lines: dict = {}
+    by_path: dict = {}                      # kernel -> {phase: launches}
+    at: dict = {}                           # kernel -> {phase: its line}
     for phase, (arch, n_layers, requests) in SERVE_PHASES.items():
         cfg = get_config(arch)
         reduced = {}
@@ -3894,9 +3928,17 @@ def main() -> int:
         t0 = time.perf_counter()
         record, typical = serve_path(dev, card, phase, cfg, requests,
                                      reduced, profile=profile)
+        launches = record["launches"]
+        if phase == "serve_stablelm":       # head dim 160 at its prefill
+            B, S = typical["flash_attention"][0].shape[:2]
+            record["flash_attention_at_prefill"] = at.setdefault(
+                "flash_attention", {})[phase] = flash_at(card, cfg, B, S, 20,
+                                                         lse=False)
         record["phase_seconds"] = time.perf_counter() - t0
         emit(record)
-        launches = record["launches"]
+        for name, n in launches.items():
+            if n:
+                by_path.setdefault(name, {})[phase] = n
         if phase == "serve":
             lines["flash_attention"] = flash_line(
                 card, typical["flash_attention"], launches["flash_attention"])
@@ -3916,25 +3958,25 @@ def main() -> int:
     record["phase_seconds"] = time.perf_counter() - t0
     emit(record)
     quant = quantize_lines(card, launches)
-    by_path = {name: {"train": n} for name, n in launches.items()}
-    train_at: dict = {}
+    for name, n in launches.items():
+        by_path.setdefault(name, {})["train"] = n
     for phase in TRAIN_FAMILIES:
         t0 = time.perf_counter()
-        record, launches, at = family_train_path(dev, card, phase,
-                                                 profile=profile)
+        record, launches, train_at = family_train_path(dev, card, phase,
+                                                       profile=profile)
         record["phase_seconds"] = time.perf_counter() - t0
         emit(record)
         for name, n in launches.items():
             if n:
                 by_path.setdefault(name, {})[phase] = n
-        for name, line in at.items():
-            train_at.setdefault(name, {})[phase] = line
+        for name, line in train_at.items():
+            at.setdefault(name, {})[phase] = line
         del record
         free_device()
 
     print(card.smi, flush=True)             # again, within the tail
     emit({"kernels": [vpc, chacha] + [
-        with_paths(line, by_path, train_at)
+        with_paths(line, by_path, at)
         for line in (lines["flash_attention"], lines["moe_gmm"], *quant,
                      lines["mamba_ssm"], lines["rwkv6_wkv"])]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": card.name,

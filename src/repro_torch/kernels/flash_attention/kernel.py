@@ -26,7 +26,7 @@ from repro_torch.kernels import _build
 __all__ = ["HEAD_DIMS", "MAX_GROUP", "flash_attention_cuda"]
 
 #: head dims the kernel is instantiated for
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 160)
 #: largest H / Kv: a block holds all G heads of its queries (128 (query,
 #: head) rows in the bf16 body, 64 in the f32 one)
 MAX_GROUP = 64

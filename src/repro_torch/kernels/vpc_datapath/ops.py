@@ -26,7 +26,10 @@ def smem_tile_bytes() -> int:
 def rule_table(rules, device) -> torch.Tensor:
     """(prefixes, masks, allow) -> contiguous (R, 4) u32 rows of
     ``{prefix, mask, mask length, allow}`` on ``device``."""
-    prefixes, masks, allow = (widen(x.to(device)) for x in rules)
+    # three rule arrays, once a deployment and device (the fused program's
+    # cache in api/compute_backend.py)
+    prefixes, masks, allow = (widen(x.to(device))  # noqa: L-RING
+                              for x in rules)
     return narrow(torch.stack([prefixes, masks, popcount32(masks),
                                (allow != 0).to(torch.int64)], 1)).contiguous()
 

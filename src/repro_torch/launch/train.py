@@ -101,8 +101,8 @@ class Trainer:
             if self.step % log_every == 0 or self.step == steps:
                 # the logging sync is deliberate, amortised over log_every
                 log(f"step {self.step:5d} "
-                    f"loss {float(m['loss']):.4f} "
-                    f"gnorm {float(m['grad_norm']):.3f} "
+                    f"loss {float(m['loss']):.4f} "  # noqa: L-HOSTSYNC
+                    f"gnorm {float(m['grad_norm']):.3f} "  # noqa: L-HOSTSYNC
                     f"({(time.time() - t0):.1f}s)")
             if self.ckpt and (self.step % ckpt_every == 0
                               or self.step == steps):

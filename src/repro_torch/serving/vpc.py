@@ -188,7 +188,9 @@ def make_edge_case(kind: str, n: int, seed: int = 0, device=None):
         rows = body[:1023] + [rule(2, 24, True), rule(2, 28, False)]
     else:
         raise ValueError(f"unknown edge case {kind!r}; one of {EDGE_CASES}")
-    prefixes, masks, allow = (np.asarray(c) for c in zip(*rows))
+    # host tuples of rule fields, not tensors
+    prefixes, masks, allow = (np.asarray(c)  # noqa: L-HOSTSYNC
+                              for c in zip(*rows))
     return (torch.from_numpy(headers).to(dev),
             torch.from_numpy(payload).to(dev),
             (torch.from_numpy(prefixes.astype(np.uint32)).to(dev),

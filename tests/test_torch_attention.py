@@ -24,6 +24,7 @@ from repro.models import layers as jlayers
 from repro_torch.kernels.flash_attention import (attention_ref,
                                                  flash_attention,
                                                  flash_attention_cuda)
+from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS
 from repro_torch.models import layers
 
 TOL = {"float32": dict(atol=2e-5, rtol=2e-5),
@@ -92,7 +93,7 @@ def test_flash_attention_matches_model_fallback(B, S, H, Kv, hd, dtype):
 EDGE_S = [63, 65, 129, 1237]
 
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 160])
 @pytest.mark.parametrize("G", [4, 8])
 @pytest.mark.parametrize("S", EDGE_S)
 def test_flash_attention_plain_matches_jax_at_tile_edges(S, G, hd):
@@ -112,6 +113,18 @@ def test_flash_attention_plain_matches_jax_at_tile_edges(S, G, hd):
             _, jlse = jattn._fa_forward(jq, jk, jv, S, True)
             np.testing.assert_allclose(lse.numpy(), np.asarray(jlse),
                                        **TOL[dtype])
+
+
+def test_kernel_head_dims_cover_every_config_with_attention():
+    """On CUDA every attention call launches the kernel, which raises for a
+    head dim it is not instantiated for; the JAX package serves and trains
+    every config at any head dim.  So every config with an attention layer
+    must have its head dim in ``HEAD_DIMS`` (stablelm-12b's is 160)."""
+    from repro_torch.configs import ARCH_NAMES, get_config
+    dims = {name: get_config(name).hd for name in ARCH_NAMES
+            if any(m == "attn" for m, _ in get_config(name).layer_kinds())}
+    assert dims["stablelm-12b"] == 160
+    assert {n: hd for n, hd in dims.items() if hd not in HEAD_DIMS} == {}
 
 
 def test_plain_version_is_the_reference_oracle():

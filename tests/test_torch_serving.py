@@ -66,8 +66,22 @@ def assert_logits(t, j, atol=1e-4):
 def test_prefill_and_decode_match_jax(arch, scan):
     """Left-padded prompts, greedy decode past the prompt: logits within
     1e-4 and the same greedy tokens at every step."""
-    cfg = jconfigs.get_tiny_config(arch).replace(frontend="tokens",
-                                                 scan_layers=scan)
+    check_prefill_and_decode(jconfigs.get_tiny_config(arch).replace(
+        frontend="tokens", scan_layers=scan), scan)
+
+
+@pytest.mark.parametrize("scan", [False, True])
+def test_stablelm_at_head_dim_160_prefill_and_decode_match_jax(scan):
+    """Tiny stablelm (LayerNorm) at stablelm-12b's head dim, 160, which the
+    port's attention kernel is instantiated for: the same logits, caches
+    and greedy tokens as the JAX package."""
+    cfg = jconfigs.get_tiny_config("stablelm-12b").replace(head_dim=160,
+                                                           scan_layers=scan)
+    assert cfg.norm == "layernorm" and cfg.hd == 160
+    check_prefill_and_decode(cfg, scan)
+
+
+def check_prefill_and_decode(cfg, scan):
     jp = JM.init_params(jax.random.PRNGKey(7), cfg)
     assert isinstance(jp["layers"], dict) == scan     # both JAX layouts
     tp = ported(jp, cfg)
@@ -548,6 +562,16 @@ def test_serve_backend_rwkv_through_platform_matches_jax():
     assert reports[1] == reports[0]
     assert reports[1]["cache"][0] == 1
     assert reports[1]["tenants"]["free"][1] == 1
+
+
+def test_serve_backend_stablelm_hd160_through_platform_matches_jax():
+    """Tiny stablelm at head dim 160 behind the Platform: the same tokens,
+    cache hits and compile log as the JAX package."""
+    cfg = jconfigs.get_tiny_config("stablelm-12b").replace(head_dim=160)
+    reports = platform_reports(cfg, JM.init_params(jax.random.PRNGKey(9),
+                                                   cfg))
+    assert reports[1] == reports[0]
+    assert reports[1]["cache"][0] == 1
 
 
 def test_serve_cache_setting_conflict_rejected():

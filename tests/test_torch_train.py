@@ -50,7 +50,8 @@ from repro_torch.optim import adamw
 
 CPU = "cpu"
 ARCHS = ["yi-6b", "qwen3-8b", "musicgen-medium", "qwen2-vl-2b",
-         "granite-moe-1b-a400m", "jamba-v0.1-52b", "rwkv6-3b"]
+         "granite-moe-1b-a400m", "jamba-v0.1-52b", "rwkv6-3b",
+         "stablelm-12b"]
 _j_vg = {}
 
 
