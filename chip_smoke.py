@@ -170,6 +170,32 @@ prints one JSON line per phase:
                  times the raw-launch ms there), the compression's ms, and
                  one layer's plain scan backward (wall ms and, from
                  ``torch.profiler``, its device ms);
+  7c. the mesh (``launch/mesh.py``, ``parallel/``, ``Trainer(mesh=...)``):
+     mesh_train    — a NCCL process group of one rank (a ``FileStore`` in a
+                 temporary directory; no fallback when NCCL cannot start)
+                 and ``parse_mesh("1x1")`` on cuda:0; the sharded
+                 ``Trainer(cfg, mesh=mesh, compress="int8")`` on qwen3-8b
+                 at full width cut to 4 layers (``reduced``), 1 x 4,096,
+                 lr 3e-4, 5 steps, params and moments DTensors; then, its
+                 weights freed, the same 5 steps from the same seed without
+                 a mesh: losses and gradient norms within 1e-5 relative
+                 (``bit_equal`` says whether they are), exact launches a
+                 step in both (flash 2 a layer, the quantize pair once a
+                 parameter tensor); the NCCL kernels of one more meshed step
+                 (``torch.profiler``), both runs' median step seconds,
+                 tokens/s and peak memory;
+     compressed_psum — ``compressed_psum_int8`` on the one-rank group at an
+                 MLP weight's shape (14,336 x 4,096 f32) through the
+                 quantize kernels, bit-equal to the plain route, one launch
+                 of each; then the process group is destroyed;
+     dryrun        — host only: ``python -m repro_torch.launch.dryrun --mesh
+                 both`` for qwen3-8b train_4k, jamba-v0.1-52b prefill_32k,
+                 grok-1-314b decode_32k and rwkv6-3b long_500k, one
+                 subprocess a cell, all at once, each to exit 0; then
+                 ``python -m repro_torch.roofline.analysis`` on qwen3-8b
+                 train_4k; prints each record's per-device argument and
+                 peak GB, FLOP, bytes accessed, collective GB and counts,
+                 the roofline terms and the wall seconds;
   8. the ``{"kernels": [...]}`` line: per kernel (all eight) its launches
      on each path that ran it, each counted from 0 just before the path's
      run (``launches_by_path``; ``launches`` their sum), time, plain time,
@@ -403,6 +429,21 @@ TRAIN_FAMILIES = {
     "train_rwkv": ("rwkv6-3b", 8, "none", 2),
     "train_stablelm": ("stablelm-12b", 4, "int8", None),
 }
+#: the mesh phases: the sharded Trainer on a NCCL group of one rank and a
+#: 1 x 1 mesh, qwen3-8b at full width cut to MESH_LAYERS layers, int8,
+#: TRAIN_B x TRAIN_S, TRAIN_STEPS steps, against the same run without a
+#: mesh (the train gates' 1e-5 relative on losses and gradient norms: the
+#: embedding's backward on the card accumulates with atomics, so two runs
+#: need not be bit-equal); compressed_psum at an MLP weight's shape
+MESH_LAYERS = 4
+MESH_RTOL = 1e-5
+PSUM_SHAPE = (14336, 4096)
+#: the dry run's cells on the card's host (both production meshes each,
+#: one subprocess a cell, all at once), and the cell under the roofline
+DRYRUN_CELLS = (("qwen3-8b", "train_4k"), ("jamba-v0.1-52b", "prefill_32k"),
+                ("grok-1-314b", "decode_32k"), ("rwkv6-3b", "long_500k"))
+ROOFLINE_CELL = ("qwen3-8b", "train_4k")
+DRYRUN_TIMEOUT_S = 400
 #: the card's restart check: relative loss difference after the restore
 #: (the embedding's backward accumulates with atomics)
 RESTART_RTOL = 1e-3
@@ -3048,8 +3089,8 @@ def check_train_step_one(dev, cfg, batch) -> dict:
 
     host_grads: list = []
 
-    def capturing(params, cfg_, batch_):
-        out, grads = value_and_grad(params, cfg_, batch_)
+    def capturing(params, cfg_, batch_, *loss_scale):
+        out, grads = value_and_grad(params, cfg_, batch_, *loss_scale)
         host_grads.extend(g.cpu() for g in leaves(grads))
         return out, grads
 
@@ -3815,6 +3856,234 @@ def family_train_path(dev, card: Card, phase: str, profile: bool = False):
     return record, launches, at
 
 
+# ------------------------------------------------------- 7c. the mesh -----
+def init_nccl_group(tmp: str):
+    """A NCCL process group of one rank on cuda:0, its store a file in
+    ``tmp``; raises where NCCL cannot start (no fallback)."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    store = dist.FileStore(str(Path(tmp) / "store"), 1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    expect(dist.get_backend() == "nccl", f"backend {dist.get_backend()}")
+
+
+def mesh_run(dev, cfg, mesh, kernels: dict) -> tuple[dict, object]:
+    """TRAIN_STEPS steps of the int8 Trainer (on ``mesh``, or one card
+    without): losses, gradient norms (each step's metric, read once at the
+    end), step seconds, peak memory and each kernel's launches, counted
+    from 0 just before the run.  Returns the record and the Trainer."""
+    import torch
+
+    from repro_torch.launch import train
+    torch.cuda.reset_peak_memory_stats()
+    tr = train.Trainer(cfg, mesh=mesh, lr=TRAIN_LR, compress="int8",
+                       seed=TRAIN_SEED, device=None if mesh else dev)
+    norms, ends = [], []
+    inner = tr.step_fn
+
+    def step(*args):
+        out = inner(*args)
+        norms.append(out[3]["grad_norm"])
+        return out
+    tr.step_fn = step
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    losses = tr.run(TRAIN_STEPS, TRAIN_B, TRAIN_S, seed=TRAIN_SEED,
+                    log_every=1, log=lambda _: ends.append(
+                        time.perf_counter()))
+    launches = {name: k.launches for name, k in kernels.items()}
+    step_s = [b - a for a, b in zip([start] + ends[:-1], ends)]
+    median_s = float(np.median(step_s[1:]))
+    return {"losses": losses,
+            "grad_norms": torch.stack(norms).cpu().tolist(),
+            "step_seconds": step_s, "median_step_s_2_to_5": median_s,
+            "tokens_per_s": TRAIN_B * TRAIN_S / median_s,
+            "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launches}, tr
+
+
+def nccl_kernels_per_step(tr) -> dict:
+    """The NCCL kernels of one more step, by name, from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tr.run(tr.step + 1, TRAIN_B, TRAIN_S, seed=TRAIN_SEED,
+               log=lambda *_: None)
+    out: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and "nccl" in e.name.lower():
+            out[e.name] = out.get(e.name, 0) + 1
+    return out
+
+
+def mesh_train_path(dev, tmp: str):
+    """The ``mesh_train`` phase: ``Trainer(cfg, mesh=parse_mesh("1x1"),
+    compress="int8")`` over a NCCL group of one rank against the same run
+    without a mesh.  Returns the record and the meshed run's launches."""
+    import torch
+
+    from repro_torch._tree import leaves
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.parallel.sharding import is_dtensor
+
+    init_nccl_group(tmp)
+    mesh = train.parse_mesh("1x1")
+    full = get_config(TRAIN_ARCH)
+    cfg = full.replace(n_layers=MESH_LAYERS)
+    kernels = {k: v for k, v in train_kernels().items()
+               if k in ("flash_attention", "quantize_int8",
+                        "dequantize_int8")}
+    t0 = time.perf_counter()
+    meshed, tr = mesh_run(dev, cfg, mesh, kernels)
+    expect(all(is_dtensor(x) for x in leaves(tr.params)) and
+           all(is_dtensor(x) for x in leaves(tr.opt.m)),
+           "the meshed Trainer's params and moments are not DTensors")
+    n_leaves = len(leaves(tr.params))
+    nccl = nccl_kernels_per_step(tr)
+    meshed["seconds"] = time.perf_counter() - t0
+    del tr
+    free_device()
+    t0 = time.perf_counter()
+    plain, tr = mesh_run(dev, cfg, None, kernels)
+    plain["seconds"] = time.perf_counter() - t0
+    del tr
+    free_device()
+    per_step = {"flash_attention": 2 * cfg.n_layers,
+                "quantize_int8": n_leaves, "dequantize_int8": n_leaves}
+    for run in (meshed, plain):
+        for name, n in per_step.items():
+            expect(run["launches"][name] == n * TRAIN_STEPS,
+                   f"{name} launched {run['launches'][name]}x in "
+                   f"{TRAIN_STEPS} steps, expected {n} a step")
+    diff = {}
+    for key in ("losses", "grad_norms"):
+        a, b = np.array(meshed[key]), np.array(plain[key])
+        expect(np.isfinite(a).all() and np.isfinite(b).all(),
+               f"{key}: {a} / {b}")
+        diff[key] = float(np.max(np.abs(a - b) / np.abs(b)))
+        expect(diff[key] <= MESH_RTOL, f"mesh_train {key} differ by "
+               f"{diff[key]:.3g} relative: {a} against {b}")
+    return {"phase": "mesh_train", "arch": cfg.name, "layers": cfg.n_layers,
+            "reduced": {"n_layers": f"{full.n_layers} -> {MESH_LAYERS}"},
+            "mesh": "1x1", "backend": "nccl", "compress": "int8",
+            "batch": TRAIN_B, "seq": TRAIN_S, "lr": TRAIN_LR,
+            "steps": TRAIN_STEPS, "param_tensors": n_leaves,
+            "meshed": meshed, "one_card": plain,
+            "max_rel_diff": diff,
+            "bit_equal": meshed["losses"] == plain["losses"] and
+            meshed["grad_norms"] == plain["grad_norms"],
+            "launches_per_step": per_step,
+            "nccl_kernels_per_step": nccl}, meshed["launches"]
+
+
+def compressed_psum_path(dev) -> tuple[dict, dict]:
+    """The ``compressed_psum`` phase: ``compressed_psum_int8`` on the
+    one-rank group at an MLP weight's shape through the quantize kernels,
+    bit-equal to the plain route; destroys the process group after."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels.quantize import (dequantize_int8_cuda,
+                                              dequantize_int8_ref,
+                                              quantize_int8_cuda,
+                                              quantize_int8_ref)
+    from repro_torch.optim.compress import compressed_psum_int8
+
+    gen = torch.Generator(device=dev).manual_seed(24)
+    x = torch.randn(PSUM_SHAPE, generator=gen, device=dev)
+    kernels = {"quantize_int8": quantize_int8_cuda,
+               "dequantize_int8": dequantize_int8_cuda}
+    for k in kernels.values():
+        k.launches = 0
+    got = compressed_psum_int8(x)
+    launches = {name: k.launches for name, k in kernels.items()}
+    q, scale = quantize_int8_ref(x)
+    want = dequantize_int8_ref(q, scale)
+    expect(launches == {"quantize_int8": 1, "dequantize_int8": 1},
+           f"compressed_psum launches {launches}")
+    expect(same_values(got, want), "compressed_psum_int8 differs from the "
+           "plain route")
+    ms = cuda_ms(lambda: compressed_psum_int8(x), 20)
+    dist.destroy_process_group()
+    return {"phase": "compressed_psum", "shape": list(PSUM_SHAPE),
+            "group_size": 1, "bit_equal": True, "launches": launches,
+            "ms": ms,
+            "max_abs": float(got.abs().max())}, launches
+
+
+def dryrun_path() -> dict:
+    """The ``dryrun`` phase (host only): ``python -m repro_torch.launch.
+    dryrun --mesh both`` for each of DRYRUN_CELLS in subprocesses (all at
+    once), each to exit 0, then ``python -m repro_torch.roofline.analysis``
+    on ROOFLINE_CELL; per cell and mesh the record's per-device numbers."""
+    import os
+
+    from repro_torch.launch.dryrun import OUT_DIR
+    from repro_torch.roofline.analysis import ROOFLINE_DIR
+    env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent
+                                           / "src"),
+           "OMP_NUM_THREADS": "2"}
+    t0 = time.perf_counter()
+    procs = {cell: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         cell[0], "--shape", cell[1], "--mesh", "both"], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for cell in DRYRUN_CELLS}
+    logs = {}
+    try:
+        for cell, p in procs.items():
+            logs[cell] = p.communicate(timeout=DRYRUN_TIMEOUT_S)[0]
+    finally:
+        for p in procs.values():
+            p.kill()
+    for cell, p in procs.items():
+        expect(p.returncode == 0, f"dryrun {cell} exit {p.returncode}: "
+               f"{logs[cell][-2000:]}")
+    wall = time.perf_counter() - t0
+    cells = []
+    for arch, shape in DRYRUN_CELLS:
+        for mesh in ("single", "multi"):
+            rec = json.loads((OUT_DIR / f"{arch}__{shape}__{mesh}.json")
+                             .read_text())
+            cells.append({
+                "arch": arch, "shape": shape, "mesh": mesh,
+                "n_chips": rec["n_chips"],
+                "args_gb_per_dev":
+                    rec["memory"]["argument_size_in_bytes"] / 1e9,
+                "peak_gb_per_dev": rec["memory"]["peak_in_bytes"] / 1e9,
+                "flop_per_dev": rec["cost"]["flops"],
+                "bytes_accessed_per_dev": rec["cost"]["bytes accessed"],
+                "collective_gb_per_dev": rec["collectives"]["total"] / 1e9,
+                "collective_counts": rec["collectives"]["counts"],
+                "trace_s": rec["trace_s"]})
+    t1 = time.perf_counter()
+    arch, shape = ROOFLINE_CELL
+    r = subprocess.run([sys.executable, "-m", "repro_torch.roofline.analysis",
+                        "--arch", arch, "--shape", shape, "--no-cache"],
+                       env=env, capture_output=True, text=True,
+                       timeout=DRYRUN_TIMEOUT_S)
+    expect(r.returncode == 0, f"roofline exit {r.returncode}: "
+           f"{(r.stdout + r.stderr)[-2000:]}")
+    roof = json.loads((ROOFLINE_DIR / f"{arch}__{shape}__single.json")
+                      .read_text())
+    return {"phase": "dryrun", "cells": cells, "dryrun_wall_s": wall,
+            "roofline": {k: roof[k] for k in (
+                "arch", "shape", "mesh", "flops_per_dev", "bytes_per_dev",
+                "coll_bytes_per_dev", "compute_s", "memory_s",
+                "collective_s", "dominant", "compute_fraction",
+                "useful_flops_ratio")},
+            "roofline_wall_s": time.perf_counter() - t1}
+
+
+
 def with_paths(line: dict, by_path: dict, at: dict) -> dict:
     """A kernels-line entry with the launches of every path that ran the
     kernel (``launches_by_path``, each counted from 0 just before its
@@ -3973,6 +4242,21 @@ def main() -> int:
             at.setdefault(name, {})[phase] = line
         del record
         free_device()
+
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        record, launches = mesh_train_path(dev, tmp)
+        record["phase_seconds"] = time.perf_counter() - t0
+        emit(record)
+        for name, n in launches.items():
+            by_path.setdefault(name, {})["mesh_train"] = n
+        record, launches = compressed_psum_path(dev)
+        emit(record)
+        for name, n in launches.items():
+            by_path.setdefault(name, {})["compressed_psum"] = n
+    free_device()
+    emit(dryrun_path())
 
     print(card.smi, flush=True)             # again, within the tail
     emit({"kernels": [vpc, chacha] + [

@@ -15,7 +15,11 @@ The JAX package's contract, on trees of tensors:
     an int16 view, its dtype named in the meta), and restored onto the
     device and dtype of the ``like`` tree's leaf, shape asserted;
   - keep-last-k garbage collection;
-  - the data-pipeline state is one integer (the step), stored in meta.json.
+  - the data-pipeline state is one integer (the step), stored in meta.json;
+  - elastic: a tree of DTensors is saved logically, as full values (each
+    leaf gathered, rank 0 writes, ``wait`` ends with a barrier), and
+    ``restore`` places each leaf like ``like``'s DTensor leaf, so a restart
+    may use another mesh shape (the JAX package's ``shardings`` argument).
 """
 from __future__ import annotations
 
@@ -30,11 +34,25 @@ import numpy as np
 import torch
 
 from repro_torch._tree import leaves, unflatten
+from repro_torch.parallel.sharding import is_dtensor, place
+
+
+def _distributed() -> bool:
+    import torch.distributed as dist
+    return dist.is_available() and dist.is_initialized()
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if _distributed() else 0
 
 
 def _host(x: torch.Tensor) -> tuple[np.ndarray, str]:
     """A leaf as a numpy array of its own (the step updates the tensor in
-    place while the write runs) and its dtype's name."""
+    place while the write runs) and its dtype's name.  A DTensor is
+    gathered to its full value first (every rank takes part)."""
+    if is_dtensor(x):
+        x = x.full_tensor()
     x = x.detach().to("cpu", copy=True)
     name = str(x.dtype).removeprefix("torch.")
     if x.dtype == torch.bfloat16:          # numpy has no bfloat16
@@ -76,7 +94,12 @@ class CheckpointManager:
         self.keep = keep
         self._pool = ThreadPoolExecutor(max_workers=1)
         self._last: Future | None = None
-        self._recover()
+        self._sharded = False
+        if _rank() == 0:
+            self._recover()
+        if _distributed():
+            import torch.distributed as dist
+            dist.barrier()
 
     def _recover(self) -> None:
         """Sweep crash leftovers: a ``.tmp`` was never published, drop it;
@@ -104,7 +127,14 @@ class CheckpointManager:
         writes happen async (pass block=True to wait)."""
         # the checkpoint boundary IS the device->host copy; one snapshot
         # per save, not a per-step sync
+        self._sharded = any(is_dtensor(x) for x in leaves(tree))
         pairs = [_host(x) for x in leaves(tree)]
+        if self._sharded and _rank() != 0:     # rank 0 writes the values
+            self._last = Future()
+            self._last.set_result(step)
+            if block:
+                self.wait()
+            return self._last
         host = [a for a, _ in pairs]
         meta = {"step": step, "n_leaves": len(host),
                 "dtypes": [name for _, name in pairs], "extra": extra or {}}
@@ -142,12 +172,15 @@ class CheckpointManager:
             self._last.result()                      # keep saves ordered
         self._last = self._pool.submit(write)
         if block:
-            self._last.result()
+            self.wait()
         return self._last
 
     def wait(self):
         if self._last is not None:
             self._last.result()
+        if self._sharded:               # every rank sees the published step
+            import torch.distributed as dist
+            dist.barrier()
 
     def _gc(self):
         steps = sorted(self.steps())
@@ -170,7 +203,9 @@ class CheckpointManager:
 
     def restore(self, step: int | None, like: Any) -> tuple[Any, dict]:
         """Load ``step`` (default latest) into the structure of ``like``;
-        each leaf lands on the device and dtype of ``like``'s leaf."""
+        each leaf lands on the device and dtype of ``like``'s leaf, and
+        where that leaf is a DTensor, placed like it (on its mesh, which
+        may have another shape than the saving run's)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -190,7 +225,11 @@ class CheckpointManager:
             t = torch.from_numpy(a)
             if dtype == "bfloat16":
                 t = t.view(torch.bfloat16)
-            loaded.append(t.to(device=ref.device, dtype=ref.dtype))
+            if is_dtensor(ref):
+                loaded.append(place(t.to(dtype=ref.dtype), ref.device_mesh,
+                                    ref.placements))
+            else:
+                loaded.append(t.to(device=ref.device, dtype=ref.dtype))
         return unflatten(like, loaded), meta["extra"]
 
 

@@ -5,9 +5,9 @@ An infinite, step-indexed stream (resumable from any step after a
 checkpoint restore: the step number *is* the data state).  Each batch is
 drawn with numpy from ``(seed, step)`` exactly as the JAX package draws it,
 so both packages see the same tokens; ``batch(step)`` hands it to the
-device from pinned host memory without blocking.  The JAX package's
-``place`` puts a batch on a mesh with shardings and is not ported (ROADMAP
-Queue 1 #7): one card has no mesh.
+device from pinned host memory without blocking.  ``place`` gives each rank
+of a mesh its own chunk of a batch by the batch specs (every rank draws
+the same batch, so no data moves between ranks).
 """
 from __future__ import annotations
 
@@ -71,6 +71,62 @@ class SyntheticLM:
             step += 1
 
 
+def place(batch: dict, mesh, specs) -> dict:
+    """Each rank's leaves of ``batch`` (tensors or numpy arrays) by
+    ``specs`` (``parallel.sharding.batch_specs``): plain tensors, the
+    rank's chunk, on the mesh's device."""
+    from repro_torch.parallel.sharding import distribute, local
+
+    tensors = {k: torch.as_tensor(v) for k, v in batch.items()}
+    placed = distribute(tensors, {k: specs[k] for k in tensors}, mesh)
+    return {k: local(v).contiguous() for k, v in placed.items()}
+
+
+class _Axes:
+    """The mesh seen through some of its axes (a rule-table mesh)."""
+
+    def __init__(self, shape: dict):
+        self.shape, self.axis_names = shape, tuple(shape)
+
+
+def place_microbatches(batch: dict, accum: int, mesh,
+                       all_axes: bool = False) -> list:
+    """``batch`` split into ``accum`` microbatches as the JAX package splits
+    the global batch (rows ``[i B / accum, (i + 1) B / accum)``), each
+    placed by ``batch_specs``: a list of each rank's leaves.  Two rules of
+    the port's own, where the rows do not divide over the batch ranks
+    (where the JAX package's ``fit_spec`` replicates the batch):
+      - the batch is split into the most microbatches, up to ``accum``,
+        whose rows divide over the batch ranks, else placed whole
+        (``grad_accum`` bounds the rows a rank holds at once; the 2 x 16 x
+        16 mesh's grok-1 step takes 8 microbatches of 32 rows, one a rank);
+      - a batch that does not divide over every batch axis is split over
+        the minor ones that it divides and repeated over the rest (the
+        2 x 16 x 16 mesh's 256-row batch: over "data" x "model", once per
+        pod)."""
+    from repro_torch.parallel.sharding import P, batch_specs, data_axes, view
+
+    m = view(mesh)
+    axes = m.axis_names if all_axes else data_axes(mesh)
+    size = lambda ax: int(np.prod([m.shape[a] for a in ax]))  # noqa: E731
+    B = next(iter(batch.values())).shape[0]
+    accum = next((a for a in range(accum, 1, -1)
+                  if B % a == 0 and (B // a) % size(axes) == 0), 1)
+    rows = B // accum
+    while axes and rows % size(axes):
+        axes = axes[1:]                     # repeat over the major axis
+    sub = _Axes({a: m.shape[a] for a in axes})
+    micro = [batch] if accum <= 1 else [
+        {k: v.reshape(accum, rows, *v.shape[1:])[i]
+         for k, v in batch.items()} for i in range(accum)]
+    out = []
+    for mb in micro:
+        specs = batch_specs(mb, sub, all_axes=True) if axes else \
+            {k: P() for k in mb}
+        out.append(place(mb, mesh, specs))
+    return out
+
+
 def pack_documents(docs: list[np.ndarray], S: int, pad_id: int = 0,
                    eos_id: int = 1) -> np.ndarray:
     """Greedy sequence packing: concatenate docs with EOS separators into
@@ -129,4 +185,5 @@ class Prefetcher:
             pass
 
 
-__all__ = ["Prefetcher", "SyntheticLM", "pack_documents"]
+__all__ = ["Prefetcher", "SyntheticLM", "pack_documents", "place",
+           "place_microbatches"]

@@ -12,8 +12,15 @@ With ``state_out`` given, the final state is written there (it may be
 ``chunk``-step segments under autograd (one launch a segment on the card;
 the backward recomputes each segment with the plain version from its saved
 starting state, :mod:`repro_torch.kernels._segments`).
+The recurrence is one ``torch.library`` op, ``repro_torch::rwkv6_wkv`` (it
+writes the final state into ``state_out``, allocated here when not given),
+so a fake-tensor trace (the dry run) sees one op a launch and the
+recurrence's FLOP: 7 a state element and step.
 """
 from __future__ import annotations
+
+import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels._segments import segmented
 
@@ -21,17 +28,42 @@ from .kernel import rwkv6_wkv_cuda
 from .ref import rwkv6_wkv_ref
 
 
+@torch.library.custom_op("repro_torch::rwkv6_wkv",
+                         mutates_args=("state_out",))
+def _wkv_op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            w: torch.Tensor, u: torch.Tensor, state: torch.Tensor | None,
+            state_out: torch.Tensor) -> torch.Tensor:
+    if r.device.type == "cuda":
+        y, st = rwkv6_wkv_cuda(r, k, v, w, u, state, state_out)
+    else:
+        y, st = rwkv6_wkv_ref(r, k, v, w, u, state)
+    if st is not state_out:  # the plain version (or a stand-in for the kernel)
+        state_out.copy_(st)
+    return y
+
+
+@_wkv_op.register_fake
+def _(r, k, v, w, u, state, state_out):
+    return r.new_empty(r.shape)
+
+
+@register_flop_formula(torch.ops.repro_torch.rwkv6_wkv)
+def rwkv6_wkv_flop(r_shape, *args, **kwargs) -> int:
+    B, S, H, hd = r_shape
+    return 7 * B * S * H * hd * hd
+
+
 def wkv(r, k, v, w, u, state=None, state_out=None):
     """r, k, v, w: (B, S, H, hd); u: (H, hd); state, state_out: (B, H, hd,
     hd) or None -> (y, state_final)."""
-    if r.device.type == "cuda":
-        return rwkv6_wkv_cuda(r, k, v, w, u, state, state_out)
-    if r.device.type == "cpu":
-        y, st = rwkv6_wkv_ref(r, k, v, w, u, state)
-        if state_out is not None:
-            st = state_out.copy_(st)
-        return y, st
-    raise ValueError(f"wkv: no kernel for device {r.device}")
+    if r.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"wkv: no kernel for device {r.device}")
+    if state_out is None:   # the kernel's f32; the plain version's dtype
+        B, _, H, hd = r.shape
+        state_out = torch.empty((B, H, hd, hd), dtype=torch.float32
+                                if r.device.type == "cuda" else r.dtype,
+                                device=r.device)
+    return _wkv_op(r, k, v, w, u, state, state_out), state_out
 
 
 def segmented_wkv(r, k, v, w, u, state=None, chunk: int = 64):
@@ -42,4 +74,4 @@ def segmented_wkv(r, k, v, w, u, state=None, chunk: int = 64):
     return segmented(wkv, rwkv6_wkv_ref, chunk, (r, k, v, w), (u,), state)
 
 
-__all__ = ["segmented_wkv", "wkv"]
+__all__ = ["rwkv6_wkv_flop", "segmented_wkv", "wkv"]

@@ -129,9 +129,8 @@ def apply_mrope(x, positions3, theta: float, sections: tuple[int, ...]):
     exps = torch.arange(0, hd, 2, dtype=torch.float32, device=x.device) / hd
     inv_freq = 1.0 / (theta ** exps)
     ang = positions3.float()[..., None] * inv_freq         # (3, B, S, half)
-    sect = torch.repeat_interleave(
-        torch.arange(len(sections), device=x.device),
-        torch.tensor(sections, device=x.device))           # (half,)
+    sect = torch.tensor([i for i, n in enumerate(sections)
+                         for _ in range(n)], device=x.device)   # (half,)
     ang = ang[sect, :, :, torch.arange(half, device=x.device)]  # (half,B,S)
     ang = ang.permute(1, 2, 0)
     sin, cos = torch.sin(ang)[:, :, None, :], torch.cos(ang)[:, :, None, :]

@@ -40,6 +40,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import _device
+from repro_torch.parallel.sharding import gather
 
 from . import attention as A
 from . import mamba as M
@@ -209,15 +210,22 @@ def _remat(fn, cfg):
                               "config uses it)")
 
 
+def _outer(params):
+    """``params`` with everything but the layers gathered (each layer is
+    gathered as it runs)."""
+    return {k: v if k == "layers" else gather(v) for k, v in params.items()}
+
+
 def forward_hidden(params, cfg, batch):
     """Runs the full stack; returns (hidden (B, S, d), aux_loss)."""
+    params = _outer(params)
     x = embed_inputs(params, cfg, batch)
     B, S, _ = x.shape
     positions = _positions(cfg, batch, B, S, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, lp in enumerate(params["layers"]):
         def one(xx, lp, i=i):
-            return layer_apply(lp, xx, cfg, i, positions)
+            return layer_apply(gather(lp), xx, cfg, i, positions)
         x, a = _remat(one, cfg)(x, lp)
         aux = aux + a
     return x, aux
@@ -226,6 +234,7 @@ def forward_hidden(params, cfg, batch):
 def apply_train(params, cfg, batch):
     """batch: tokens|embeds, labels (B, S) int (-100 = masked) ->
     (loss, {"xent", "aux", "loss"})."""
+    params = _outer(params)
     x, aux = forward_hidden(params, cfg, batch)
     x = norm_apply(cfg.norm, params["final_norm"], x)
     xent = chunked_softmax_xent(x, params["head"]["w"], batch["labels"],
@@ -267,6 +276,7 @@ def apply_prefill(params, cfg, batch, max_len: int | None = None):
     decode can write in place; S > ``max_len`` raises, as the JAX package's
     cache update fails there.
     """
+    params = _outer(params)
     x = embed_inputs(params, cfg, batch)
     B, S, _ = x.shape
     max_len = max_len or S
@@ -277,6 +287,7 @@ def apply_prefill(params, cfg, batch, max_len: int | None = None):
     cdt = x.dtype
     cache = []
     for i, lp in enumerate(params["layers"]):
+        lp = gather(lp)
         lc = layer_cache_init(cfg, i, B, max_len, cdt, x.device)
         h = norm_apply(cfg.norm, lp["norm1"], x)
         mix = cfg.mixer_kind(i)
@@ -304,11 +315,12 @@ def apply_decode(params, cfg, cache, batch, pos: int):
 
     Returns (logits (B, V), cache); the cache tensors are updated in place.
     """
+    params = _outer(params)
     x = embed_inputs(params, cfg, batch)
     pos = int(pos)
     new = []
     for i, (lp, lc) in enumerate(zip(params["layers"], cache)):
-        x, lc = layer_decode(lp, lc, x, cfg, i, pos)
+        x, lc = layer_decode(gather(lp), lc, x, cfg, i, pos)
         new.append(lc)
     x = norm_apply(cfg.norm, params["final_norm"], x)
     logits = linear(params["head"], x)[:, 0, :]

@@ -18,8 +18,12 @@ Rounding points kept from the JAX package: the router computes in f32 from
 the combine accumulates in the compute dtype; the expert weights are taken
 in ``x.dtype`` at use (the kernel rounds f32 weights to bf16 as it loads
 them, the same values as a cast).  Differences that change no result:
-  - ``pctx.constrain`` (sharding annotations) is a no-op on one device and
-    is dropped, and with it the ``moe_ep`` branch, whose math is the same;
+  - ``pctx.constrain`` (sharding annotations) is dropped, and with it the
+    ``moe_ep`` branch, whose math is the same: the port's sharded step
+    runs each layer on gathered weights, so expert parallelism is the
+    experts' placement alone (``(TP, f, None)`` / ``(TP, None, f)`` from
+    ``parallel.sharding.param_specs``); the router's batch means go
+    through ``pctx.batch_mean``, a no-op on one device;
   - ``torch.topk`` does not promise an order among equal values, so the
     top k come from a stable descending sort, which keeps the lower expert
     first as ``jax.lax.top_k`` does;
@@ -38,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.moe_gmm import grouped_matmul
+from repro_torch.parallel import ctx as pctx
 
 from .layers import linear_init, normal
 
@@ -68,8 +73,10 @@ def router_topk(p, x, cfg):
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
     # switch-style load-balance loss + router z-loss
     E = cfg.n_experts
-    me = probs.reshape(-1, E).mean(0)                 # mean prob / expert
-    ce = F.one_hot(idx.reshape(-1, k)[:, 0], E).float().mean(0)
+    # means over the whole batch: over every batch shard under a mesh
+    me = pctx.batch_mean(probs.reshape(-1, E).mean(0))   # mean prob / expert
+    ce = pctx.batch_mean(F.one_hot(idx.reshape(-1, k)[:, 0], E).float()
+                         .mean(0))
     lb = E * torch.sum(me * ce)
     z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
     aux = cfg.moe_aux_coeff * lb + cfg.moe_z_coeff * z

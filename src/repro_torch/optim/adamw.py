@@ -12,6 +12,11 @@ which is what the JAX package's ``layer_scan`` buys, so there is no such
 switch here.  The math is written out as tensor ops, not
 ``torch.optim.AdamW``, whose clipping, decay and bias-correction order are
 not the reference's.
+
+Under a mesh the trees hold DTensors (``launch.train.Trainer(mesh=...)``):
+the update runs on each rank's local shards, and the global norm sums each
+shard's squares once (a shard held by r ranks counts 1/r on each), with one
+all-reduce a step.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch._tree import leaves, map_tree
+from repro_torch.parallel.sharding import all_sum, local, replicas
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -33,20 +39,24 @@ class AdamWState(NamedTuple):
 
 def init(params: Any, moment_dtype: str = "float32") -> AdamWState:
     dt = _DTYPES[moment_dtype]
-    zeros = lambda p: torch.zeros(p.shape, dtype=dt,  # noqa: E731
-                                  device=p.device)
-    device = leaves(params)[0].device
+    zeros = lambda p: torch.zeros_like(  # noqa: E731
+        p, dtype=dt, memory_format=torch.contiguous_format)
+    device = local(leaves(params)[0]).device
     return AdamWState(m=map_tree(zeros, params), v=map_tree(zeros, params),
                       count=torch.zeros((), dtype=torch.int32,
                                         device=device))
 
 
 def global_norm(tree: Any) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in f32 (a device
-    scalar)."""
-    return torch.stack([
-        torch.linalg.vector_norm(x, dtype=torch.float32).square()
-        for x in leaves(tree)]).sum().sqrt()
+    """sqrt of the sum of squares of every leaf, in f32 (a device scalar);
+    over a mesh the sum over every rank's shards, each shard counted
+    once."""
+    def sq(x):
+        s = torch.linalg.vector_norm(local(x), dtype=torch.float32).square()
+        r = replicas(x)
+        return s if r == 1 else s / r
+    return all_sum(torch.stack([sq(x) for x in leaves(tree)]).sum(),
+                   tree).sqrt()
 
 
 def _f32(x: torch.Tensor) -> torch.Tensor:
@@ -70,6 +80,7 @@ def update(grads: Any, state: AdamWState, params: Any, *,
     c2 = 1.0 - torch.pow(torch.full_like(n, b2), n)
     for p, g, m, v in zip(leaves(params), leaves(grads), leaves(state.m),
                           leaves(state.v), strict=True):
+        p, g, m, v = local(p), local(g), local(m), local(v)
         g32 = g.float() * scale
         m32, v32, p32 = _f32(m), _f32(v), _f32(p)
         m32.mul_(b1).add_(g32, alpha=1 - b1)

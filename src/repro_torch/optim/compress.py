@@ -14,8 +14,13 @@ here).  Differences from the JAX package that change no result:
   - the int8 EF buffer is updated in place (``e += g``, quantize, ``e -=
     sent``), which saves one tensor-sized temporary;
   - ``compress_err`` sums each buffer's squared norm;
-  - ``compressed_psum_int8`` / ``compressed_psum_topk`` run inside
-    ``shard_map`` over a mesh and are not ported (ROADMAP Queue 1 #7).
+  - ``compressed_psum_int8`` / ``compressed_psum_topk`` take a process
+    group where the JAX package's take a ``shard_map`` axis name.
+Under a mesh (``launch.train.Trainer(mesh=...)``) the gradients and the EF
+buffers are DTensors placed like their parameters: each rank compresses
+its own shards of the reduced gradients, as the JAX Trainer compresses its
+sharded gradients; the wire is not compressed (neither package wires
+``compressed_psum_*`` into a trainer).
 """
 from __future__ import annotations
 
@@ -25,6 +30,8 @@ import torch
 
 from repro_torch._tree import leaves, map_tree, unflatten
 from repro_torch.kernels.quantize.ops import dequantize, quantize
+from repro_torch.parallel.sharding import (all_sum, is_dtensor, like, local,
+                                          place, replicas)
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -61,7 +68,51 @@ def topk_densify(vals, idx, n, shape, dtype=torch.float32):
     return out.reshape(shape).to(dtype)
 
 
+# ----------------------------------------------- compressed all-reduces ----
+def compressed_psum_int8(x, group=None):
+    """int8-compressed all-reduce: each rank's ``dequant(quant(x))`` (per
+    row of a 2-d ``x``, one row of anything else), summed over ``group``
+    by an f32 ``all_reduce``, in ``x``'s dtype.  On the card the pair runs
+    through the quantize kernels."""
+    import torch.distributed as dist
+
+    rows = x if x.ndim == 2 else x.reshape(1, -1)
+    q, scale = quant_int8(rows)
+    total = dequant_int8(q, scale)
+    dist.all_reduce(total, group=group)
+    return total.reshape(x.shape).to(x.dtype)
+
+
+def compressed_psum_topk(x, group=None, k_frac: float = 0.05):
+    """top-k compressed all-reduce: each rank's densified top ``k_frac``
+    entries, summed over ``group`` by an f32 ``all_reduce``."""
+    import torch.distributed as dist
+
+    vals, idx, n = topk_sparsify(x, k_frac)
+    dense = topk_densify(vals, idx, n, x.shape)
+    dist.all_reduce(dense, group=group)
+    return dense.to(x.dtype)
+
+
 # ------------------------------------------------------- error feedback -----
+def _split(x) -> bool:
+    """A DTensor whose shard on this rank is not the whole tensor."""
+    return is_dtensor(x) and local(x).numel() != x.numel()
+
+
+def _int8_round_trip(e, peak=None):
+    """``dequant(quant(e))`` with ``e`` as one row; with ``peak`` (the
+    absmax of the whole tensor ``e`` is a shard of) appended to the row, so
+    the scale is the whole tensor's."""
+    if peak is None:
+        q, s = quantize(e.view(1, -1))
+        return dequantize(q, s).view(e.shape)
+    row = torch.empty((1, e.numel() + 1), dtype=e.dtype, device=e.device)
+    row[0, :-1].copy_(e.view(-1))
+    row[0, -1] = peak
+    q, s = quantize(row)
+    return dequantize(q[:, :-1], s).view(e.shape)
+
 class GradCompressor:
     """Error-feedback gradient compression (1-bit-Adam/EF-SGD style).
 
@@ -77,30 +128,63 @@ class GradCompressor:
     def init(self, grads: Any) -> Any:
         if self.method == "none":
             return None
-        return map_tree(lambda g: torch.zeros(g.shape, dtype=torch.float32,
-                                              device=g.device), grads)
+        return map_tree(lambda g: torch.zeros_like(
+            g, dtype=torch.float32, memory_format=torch.contiguous_format),
+            grads)
 
     def compress(self, grads: Any, ef: Any) -> tuple[Any, Any, dict]:
         """Returns (compressed-and-decompressed grads, ef, metrics); the EF
-        buffers are updated in place and returned."""
+        buffers are updated in place and returned.  A DTensor leaf split
+        over ranks is compressed as the whole tensor would be (the JAX
+        package's GSPMD semantics): int8 with the tensor's own absmax (one
+        all-reduce of every split leaf's peak a step; each shard quantized
+        with that peak appended, so its scale is the tensor's), top-k over
+        the gathered tensor."""
         g_leaves = leaves(grads)
         if self.method == "none":
             return grads, ef, {"compress_err": torch.zeros(
-                (), dtype=torch.float32, device=g_leaves[0].device)}
+                (), dtype=torch.float32, device=local(g_leaves[0]).device)}
+        e_leaves = leaves(ef)
+        states = []
+        for g_d, e_d in zip(g_leaves, e_leaves, strict=True):
+            e = local(e_d)
+            e.add_(local(g_d))                             # the state
+            states.append(e)
+        peaks = self._peaks(e_leaves, states) if self.method == "int8" \
+            else {}
         sent, err = [], []
-        for g, e in zip(g_leaves, leaves(ef), strict=True):
-            e.add_(g)                                      # the state
+        for i, (g_d, e_d, e) in enumerate(zip(g_leaves, e_leaves, states)):
             if self.method == "int8":
-                q, s = quantize(e.view(1, -1))
-                out = dequantize(q, s).view(e.shape)
+                out = _int8_round_trip(e, peaks.get(i))
+            elif _split(e_d):
+                full = e_d.full_tensor()
+                vals, idx, n = topk_sparsify(full, self.k_frac)
+                out = local(place(topk_densify(vals, idx, n, full.shape),
+                                  e_d.device_mesh, e_d.placements))
             else:
                 vals, idx, n = topk_sparsify(e, self.k_frac)
                 out = topk_densify(vals, idx, n, e.shape)
             e.sub_(out)                                    # state - sent
-            sent.append(out.to(g.dtype))
-            err.append(torch.linalg.vector_norm(e).square())
+            sent.append(like(g_d, out.to(g_d.dtype)))
+            sq = torch.linalg.vector_norm(e).square()
+            err.append(sq if replicas(e_d) == 1 else sq / replicas(e_d))
         return unflatten(grads, sent), ef, {
-            "compress_err": torch.stack(err).sum()}
+            "compress_err": all_sum(torch.stack(err).sum(), ef)}
+
+    @staticmethod
+    def _peaks(e_leaves: list, states: list) -> dict:
+        """{leaf index: the whole tensor's absmax} for the leaves split over
+        ranks, from one MAX all-reduce of their shards' peaks."""
+        split = [i for i, e_d in enumerate(e_leaves) if _split(e_d)]
+        if not split:
+            return {}
+        import torch.distributed as dist
+        amax = torch.stack([
+            states[i].abs().amax().float() if states[i].numel()
+            else states[i].new_zeros((), dtype=torch.float32)
+            for i in split])
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX)
+        return dict(zip(split, amax.unbind()))
 
     def wire_bytes_ratio(self) -> float:
         """Bytes on the wire vs dense f32 (for the collective roofline)."""
@@ -111,5 +195,5 @@ class GradCompressor:
         return 1.0
 
 
-__all__ = ["GradCompressor", "dequant_int8", "quant_int8", "topk_densify",
-           "topk_sparsify"]
+__all__ = ["GradCompressor", "compressed_psum_int8", "compressed_psum_topk",
+           "dequant_int8", "quant_int8", "topk_densify", "topk_sparsify"]

@@ -14,8 +14,10 @@ of the phase.  Prints the ``nvidia-smi`` name and power limit, then per run
 and phase the generated tokens/s, mean and max time to first token, the
 served run's wall seconds, its prefill groups and, where that checkout
 records them, each kernel's device ms a run (``*_ms_per_run``); writes
-them all to ``chiprun_out/serve_ab.json``.  Needs a CUDA device; imports
-nothing of JAX.
+them all to ``chiprun_out/serve_ab.json``.  A phase of
+``chip_smoke.TRAIN_FAMILIES`` (``--phases train_hybrid``) runs
+``family_train_path`` instead, gates included, and keeps its step seconds,
+median step and tokens/s.  Needs a CUDA device; imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -30,12 +32,12 @@ PHASES = ("serve_rwkv", "serve_hybrid")
 #: the phase record's keys kept, beside every ``*_ms_per_run``
 KEYS = ("phase", "arch", "layers", "reduced", "tokens_per_s", "mean_ttft_s",
         "max_ttft_s", "seconds", "prefill_groups", "decode_steps",
-        "launches", "max_memory_gb")
+        "launches", "max_memory_gb", "step_seconds", "median_step_s_2_to_5")
 
 
 def child(root: Path, phases: list) -> int:
-    """Run the serve phases of the checkout at ``root``; one JSON line
-    each."""
+    """Run the serve (or family train) phases of the checkout at
+    ``root``; one JSON line each."""
     sys.path[:0] = [str(root), str(root / "src")]
     import torch
 
@@ -45,6 +47,13 @@ def child(root: Path, phases: list) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     card = cs.Card()
     for phase in phases:
+        if phase in cs.TRAIN_FAMILIES:
+            record, _, _ = cs.family_train_path(dev, card, phase)
+            print(json.dumps({k: v for k, v in record.items()
+                              if k in KEYS}), flush=True)
+            del record
+            cs.free_device()
+            continue
         arch, n_layers, requests = cs.SERVE_PHASES[phase]
         cfg = get_config(arch)
         reduced = {}
