@@ -188,6 +188,32 @@ prints one JSON line per phase:
                  MLP weight's shape (14,336 x 4,096 f32) through the
                  quantize kernels, bit-equal to the plain route, one launch
                  of each; then the process group is destroyed;
+  7d. tensor parallelism (``parallel/ctx.py``'s collectives, the TP forms
+     of ``models/``): two ranks, one process each (this script with
+     ``--tp-worker``), on a 1 x 2 mesh over gloo carrying CUDA tensors (NCCL
+     takes one rank a device), sharing cuda:0; each rank's records carry
+     its launches, and the kernels line counts both ranks':
+     tp_train      — qwen2.5-32b at full width cut to 2 layers, grad_accum
+                 1, no compression, 1 x 4,096, lr 3e-4, 5 steps: the
+                 config's one-process run, then ``Trainer(mesh=...)`` on
+                 the two ranks (each its 20 q heads and 4 KV heads, G 5,
+                 half of every projection, the vocab-parallel loss):
+                 losses within ``TP_LOSS_RTOL`` and gradient norms within
+                 ``TP_GNORM_RTOL`` relative, the ranks' equal; exact flash
+                 launches on each; the flash kernel against its plain
+                 version on the rank's first inputs;
+     tp_prefill    — grok-1-314b (2 layers) and jamba-v0.1-52b (8 layers),
+                 bf16 weights: 2 prompts of 512 tokens through the
+                 one-process prefill (experts recorded), then on the two
+                 ranks (each placed by the prefill rule table, drawn one
+                 rank at a time) with the routing pinned to those experts:
+                 logits within 3e-2 of their scale, the same argmax but
+                 near-ties; then ``make_prefill_step(cfg, mesh)`` routing
+                 on its own (flips and next tokens reported); exact
+                 launches of both (flash at H 24 / Kv 4 and H 16 / Kv 4,
+                 ``moe_gmm`` at f 16,384 and at 8 local experts,
+                 ``mamba_ssm`` at 4,096 channels), each kernel against its
+                 plain version on the first inputs the pinned run gave it;
      dryrun        — host only: ``python -m repro_torch.launch.dryrun --mesh
                  both`` for qwen3-8b train_4k, jamba-v0.1-52b prefill_32k,
                  grok-1-314b decode_32k and rwkv6-3b long_500k, one
@@ -205,9 +231,9 @@ prints one JSON line per phase:
      flash kernel at head dim 160 (``serve_paths``);
 and last ``{"ok": true, "device": {...}}``.  Phase 3 also holds the
 flash-attention kernel against its plain version over causal and not,
-G in {1, 2, 4, 8}, hd in {64, 128, 160}, S in {1, 7, 63, 65, 128, 129,
-1000, 1237, 2051}, B in {1, 4}, bf16 and f32 (the reference's tolerances:
-3e-2 and 2e-5), 864 cases; the grouped matmul over E in {1, 16, 32}, M in {1,
+G in {1, 2, 3, 4, 5, 6, 8}, hd in {64, 128, 160}, S in {1, 7, 63, 65,
+128, 129, 1000, 1237, 2051}, B in {1, 4}, bf16 and f32 (the reference's
+tolerances: 3e-2 and 2e-5), 1,512 cases; the grouped matmul over E in {1, 16, 32}, M in {1,
 2, 7, 63, 64, 65, 200, 448, 800}, six (d, f) widths and its three dtype
 routes (same tolerances), 432 cases; and the selective
 scan over B in {1, 4}, S in {1, 7, 31, 32, 33, 128, 1000}, di in {64, 100,
@@ -342,8 +368,12 @@ VPC_EDGE_N = (1, 513, 4099)
 #: flash-attention sweep of phase 3, and the reference's tolerances
 #: (tests/test_kernels.py: assert_allclose atol = rtol)
 #: (S 63, 65 and 129 straddle the bf16 body's 64-key tiles and, at G 4 and
-#: 8, its 32- and 16-query tiles; 1,237 is serve's prefill group)
-FA_SWEEP = dict(causal=(True, False), G=(1, 2, 4, 8), hd=(64, 128, 160),
+#: 8, its 32- and 16-query tiles; 1,237 is serve's prefill group; G 3, 5
+#: and 6 leave 126, 125 and 126 of a block's 128 (query, head) rows live,
+#: and are the local groups of tensor parallelism: qwen2.5-32b's 40 / 8 and
+#: grok-1's 48 / 8 at 2 ranks, qwen2.5-32b's 3 heads of a rank at 16)
+FA_SWEEP = dict(causal=(True, False), G=(1, 2, 3, 4, 5, 6, 8),
+                hd=(64, 128, 160),
                 S=(1, 7, 63, 65, 128, 129, 1000, 1237, 2048 + 3), B=(1, 4),
                 dtype=("bfloat16", "float32"))
 FA_KV = 2
@@ -438,6 +468,28 @@ TRAIN_FAMILIES = {
 MESH_LAYERS = 4
 MESH_RTOL = 1e-5
 PSUM_SHAPE = (14336, 4096)
+#: tensor parallelism on the card: the ranks of a 1 x 2 mesh ("data" 1,
+#: "model" 2), one process each (this script with ``--tp-worker``), share
+#: the one H100 over gloo carrying CUDA tensors (NCCL takes one rank a
+#: device; gloo runs every collective of the TP steps on CUDA tensors
+#: itself, none staged through host memory by the port).  tp_train:
+#: TP_TRAIN's config at full width, cut to its layers, grad_accum 1, no
+#: compression, TRAIN_B x TRAIN_S, TRAIN_STEPS steps, against the same
+#: config's one-process run: losses within TP_LOSS_RTOL and gradient norms
+#: within TP_GNORM_RTOL relative at every step (bf16 compute; the
+#: tolerances' reason is in PERF.md §6, PR 25).  tp_prefill: TP_PREFILL_B
+#: prompts of TP_PREFILL_S tokens through each (arch, layers) of
+#: TP_PREFILL with bf16 weights and compute, against the one-process
+#: prefill, the routing pinned to its experts: logits within TP_LOGITS_TOL
+#: of their scale and the same argmax except near-ties (a reference gap
+#: within that tolerance); then once routed on their own (flips counted)
+TP_MESH = (1, 2)
+TP_TRAIN = ("qwen2.5-32b", 2)
+TP_LOSS_RTOL, TP_GNORM_RTOL = 1e-3, 1e-2
+TP_PREFILL = (("grok-1-314b", 2), ("jamba-v0.1-52b", 8))
+TP_PREFILL_B, TP_PREFILL_S, TP_SEED = 2, 512, 25
+TP_LOGITS_TOL = 3e-2
+TP_TIMEOUT_S = 600
 #: the dry run's cells on the card's host (both production meshes each,
 #: one subprocess a cell, all at once), and the cell under the roofline
 DRYRUN_CELLS = (("qwen3-8b", "train_4k"), ("jamba-v0.1-52b", "prefill_32k"),
@@ -3871,8 +3923,9 @@ def init_nccl_group(tmp: str):
     expect(dist.get_backend() == "nccl", f"backend {dist.get_backend()}")
 
 
-def mesh_run(dev, cfg, mesh, kernels: dict) -> tuple[dict, object]:
-    """TRAIN_STEPS steps of the int8 Trainer (on ``mesh``, or one card
+def mesh_run(dev, cfg, mesh, kernels: dict, compress: str = "int8"
+             ) -> tuple[dict, object]:
+    """TRAIN_STEPS steps of the Trainer (on ``mesh``, or one card
     without): losses, gradient norms (each step's metric, read once at the
     end), step seconds, peak memory and each kernel's launches, counted
     from 0 just before the run.  Returns the record and the Trainer."""
@@ -3880,7 +3933,7 @@ def mesh_run(dev, cfg, mesh, kernels: dict) -> tuple[dict, object]:
 
     from repro_torch.launch import train
     torch.cuda.reset_peak_memory_stats()
-    tr = train.Trainer(cfg, mesh=mesh, lr=TRAIN_LR, compress="int8",
+    tr = train.Trainer(cfg, mesh=mesh, lr=TRAIN_LR, compress=compress,
                        seed=TRAIN_SEED, device=None if mesh else dev)
     norms, ends = [], []
     inner = tr.step_fn
@@ -4019,6 +4072,383 @@ def compressed_psum_path(dev) -> tuple[dict, dict]:
             "max_abs": float(got.abs().max())}, launches
 
 
+# ------------------------------------------------ 7d. tensor parallelism --
+def tp_spawn(job: str, tmp: str) -> list:
+    """``job`` ("train" | "prefill") on TP_MESH's ranks, one process each
+    (this script with ``--tp-worker``), its rendezvous a file in ``tmp``;
+    each to exit 0.  Returns the ranks' records."""
+    n = int(np.prod(TP_MESH))
+    rdv = str(Path(tmp) / f"tp_{job}_rdv")
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--tp-worker", job,
+         str(r), rdv, tmp], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(n)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=TP_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    for r, p in enumerate(procs):
+        expect(p.returncode == 0, f"tp_{job} rank {r} exit {p.returncode}: "
+               f"{logs[r][-3000:]}")
+    return [json.loads((Path(tmp) / f"tp_{job}_rank{r}.json").read_text())
+            for r in range(n)]
+
+
+def tp_worker(job: str, rank: int, rdv: str, tmp: str) -> int:
+    """One rank of a TP phase: a gloo group over TP_MESH's ranks (its
+    store the file ``rdv``), the mesh on cuda:0, the job; writes the
+    rank's record into ``tmp``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method="file://" + rdv, rank=rank,
+        world_size=int(np.prod(TP_MESH)),
+        timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+    mesh = make_mesh(TP_MESH, device="cuda")
+    rec = (tp_train_rank if job == "train" else tp_prefill_rank)(mesh, rank,
+                                                                tmp)
+    rec.update(rank=rank, backend=dist.get_backend(),
+               mesh="x".join(map(str, TP_MESH)), host_staged_collectives=[])
+    (Path(tmp) / f"tp_{job}_rank{rank}.json").write_text(json.dumps(rec))
+    dist.destroy_process_group()
+    return 0
+
+
+def tp_train_cfg():
+    from repro_torch.configs import get_config
+    arch, layers = TP_TRAIN
+    full = get_config(arch)
+    return full, full.replace(n_layers=layers, grad_accum=1)
+
+
+def tp_train_rank(mesh, rank: int, tmp: str) -> dict:
+    """The sharded Trainer's run on this rank (``mesh_run``), then the
+    flash kernel against its plain version on the first inputs the run
+    gave it (the rank's local heads)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention_cuda)
+    from repro_torch.models import attention as A
+    _, cfg = tp_train_cfg()
+    seen: dict = {}
+    fa = A.flash_attention
+
+    def capture(q, k, v, causal=True, return_lse=False):
+        seen.setdefault("qkv", tuple(t.detach().clone() for t in (q, k, v)))
+        return fa(q, k, v, causal, return_lse)
+    with patched(A, flash_attention=capture):
+        run, tr = mesh_run(torch.device("cuda", 0), cfg, mesh,
+                           {"flash_attention": flash_attention_cuda},
+                           compress="none")
+    del tr
+    free_device()
+    q, k, v = seen["qkv"]
+    got, lse = flash_attention_cuda(q, k, v, True, return_lse=True)
+    want, want_lse = attention_ref(q, k, v, True, return_lse=True)
+    run["flash_vs_plain"] = {
+        "q": list(q.shape), "kv": list(k.shape), "dtype": str(q.dtype),
+        "max_abs_err": close(got, want, "tp_train flash_attention"),
+        "lse_max_abs_err": close(lse, want_lse, "tp_train flash lse",
+                                 FA_TOL[str(q.dtype)])}
+    return run
+
+
+def tp_train_path(dev, tmp: str) -> tuple[dict, dict]:
+    """The ``tp_train`` phase: the config's one-process run, then its two
+    ranks; returns the record and the ranks' launches (summed)."""
+    from repro_torch._tree import leaves
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    full, cfg = tp_train_cfg()
+    t0 = time.perf_counter()
+    one, tr = mesh_run(dev, cfg, None,
+                       {"flash_attention": flash_attention_cuda},
+                       compress="none")
+    n_params = sum(x.numel() for x in leaves(tr.params))
+    del tr
+    free_device()
+    one["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = tp_spawn("train", tmp)
+    wall = time.perf_counter() - t0
+    per_step = 2 * kinds_of(cfg).get("attn", 0)     # forward and recompute
+    for who, run in [("one card", one)] + [(f"rank {r['rank']}", r)
+                                           for r in ranks]:
+        expect(run["launches"]["flash_attention"] == per_step * TRAIN_STEPS,
+               f"tp_train {who}: flash_attention launched "
+               f"{run['launches']['flash_attention']}x, expected {per_step}"
+               " a step")
+    diff = {}
+    for key, tol in (("losses", TP_LOSS_RTOL), ("grad_norms", TP_GNORM_RTOL)):
+        a, b = np.array(ranks[0][key]), np.array(one[key])
+        expect(np.isfinite(a).all() and np.isfinite(b).all(),
+               f"tp_train {key}: {a} / {b}")
+        expect(all(r[key] == ranks[0][key] for r in ranks),
+               f"tp_train: the ranks' {key} differ")
+        diff[key] = float(np.max(np.abs(a - b) / np.abs(b)))
+        expect(diff[key] <= tol, f"tp_train {key} differ by {diff[key]:.3g}"
+               f" relative (tolerance {tol}): {a} against {b}")
+    H, Kv = cfg.n_heads, cfg.n_kv_heads
+    n = TP_MESH[-1]
+    return {"phase": "tp_train", "arch": cfg.name, "layers": cfg.n_layers,
+            "reduced": {"n_layers": f"{full.n_layers} -> {cfg.n_layers}",
+                        "grad_accum": f"{full.grad_accum} -> 1"},
+            "params": n_params, "mesh": "x".join(map(str, TP_MESH)),
+            "backend": ranks[0]["backend"],
+            "host_staged_collectives": ranks[0]["host_staged_collectives"],
+            "compress": "none", "batch": TRAIN_B, "seq": TRAIN_S,
+            "lr": TRAIN_LR, "steps": TRAIN_STEPS,
+            "local_heads": {"q": H // n, "kv": Kv // n, "G": H // Kv},
+            "tolerance": {"losses": TP_LOSS_RTOL,
+                          "grad_norms": TP_GNORM_RTOL},
+            "max_rel_diff": diff, "one_card": one, "ranks": ranks,
+            "ranks_wall_s": wall}, {
+        "flash_attention": sum(r["launches"]["flash_attention"]
+                               for r in ranks)}
+
+
+def tp_prefill_cfg(arch: str, layers: int):
+    from repro_torch.configs import get_config
+    full = get_config(arch)
+    return full, full.replace(n_layers=layers, param_dtype="bfloat16")
+
+
+def tp_prompts(cfg, dev):
+    import torch
+    rng = np.random.default_rng(TP_SEED)
+    return torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (TP_PREFILL_B, TP_PREFILL_S),
+        dtype=np.int32)).to(dev)
+
+
+def tp_routing(record: list, pinned: list | None = None,
+               flips: list | None = None):
+    """``models.moe.router_topk`` in call order: each call's experts
+    appended to ``record``; or, with ``pinned``, call i routed to
+    ``pinned[i]`` with its own probabilities of them as gates (normalised
+    as ``router_topk`` does), and in ``flips`` the tokens whose own top k
+    differ."""
+    import torch
+
+    from repro_torch.models import moe as X
+    router_topk = X.router_topk
+
+    def route(p, x, cfg_):
+        gates, idx, aux = router_topk(p, x, cfg_)
+        i = len(record)
+        record.append(idx)
+        if pinned is None:
+            return gates, idx, aux
+        want = pinned[i].to(idx.device)
+        flips.append(int((want != idx).any(-1).sum()))
+        probs = torch.softmax(x.float() @ p["router"]["w"].float(), dim=-1)
+        g = probs.gather(-1, want)
+        return g / g.sum(-1, keepdim=True).clamp(min=1e-9), want, aux
+    return route
+
+
+def tp_prefill_kernels() -> dict:
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.mamba_scan import mamba_ssm_cuda
+    from repro_torch.kernels.moe_gmm import moe_gmm_cuda
+    return {"flash_attention": flash_attention_cuda,
+            "moe_gmm": moe_gmm_cuda, "mamba_ssm": mamba_ssm_cuda}
+
+
+def tp_prefill_rank(mesh, rank: int, tmp: str) -> dict:
+    """Per config of TP_PREFILL: the rule table's prefill placement (one
+    rank at a time draws the whole model), the prefill with the routing
+    pinned to the one-process run's experts (logits gated), then the
+    prefill step routing on its own; each kernel's launches of both, and
+    (rank 0) each kernel against its plain version on the first inputs
+    the pinned prefill gave it."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels.flash_attention import attention_ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.mamba_scan import mamba_ssm_ref
+    from repro_torch.kernels.mamba_scan import ops as scan_ops
+    from repro_torch.kernels.moe_gmm import moe_gmm_ref
+    from repro_torch.kernels.moe_gmm import ops as gmm_ops
+    from repro_torch.launch import steps
+    from repro_torch.models import init_params
+    from repro_torch.models import model as MD
+    from repro_torch.models import moe as X
+    from repro_torch.parallel import ctx as pctx
+    dev = torch.device("cuda", 0)
+    kernels = tp_prefill_kernels()
+    out: dict = {"configs": []}
+    for arch, layers in TP_PREFILL:
+        _, cfg = tp_prefill_cfg(arch, layers)
+        ref = torch.load(Path(tmp) / f"tp_prefill_{arch}.pt")
+        for r in range(int(np.prod(TP_MESH))):
+            if r == rank:
+                params = steps.shard_params(
+                    init_params(TP_SEED, cfg, device=dev), cfg, mesh)
+                free_device()
+            dist.barrier()
+        tokens = tp_prompts(cfg, dev)
+        seen: dict = {}
+
+        def capture(name, fn):
+            def call(*args):
+                seen.setdefault(name, tuple(
+                    a.detach().clone() if isinstance(a, torch.Tensor) else a
+                    for a in args))
+                return fn(*args)
+            return call
+        for k in kernels.values():
+            k.launches = 0
+            k.shapes.clear()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        record: list = []
+        flips: list = []
+        with patched(X, router_topk=tp_routing(record, ref["experts"],
+                                               flips)), \
+                patched(fa_ops, flash_attention_cuda=capture(
+                    "flash_attention", kernels["flash_attention"])), \
+                patched(gmm_ops, moe_gmm_cuda=capture(
+                    "moe_gmm", kernels["moe_gmm"])), \
+                patched(scan_ops, mamba_ssm_cuda=capture(
+                    "mamba_ssm", kernels["mamba_ssm"])), \
+                torch.inference_mode(), pctx.policy(mesh):
+            logits, _ = MD.apply_prefill(params, cfg, {"tokens": tokens})
+        torch.cuda.synchronize()
+        pinned_s = time.perf_counter() - t0
+        pinned = {k: v.launches for k, v in kernels.items()}
+        for k in kernels.values():
+            k.launches = 0
+        own: list = []
+        t0 = time.perf_counter()
+        with patched(X, router_topk=tp_routing(own)):
+            nxt, _ = steps.make_prefill_step(cfg, mesh)(params,
+                                                        {"tokens": tokens})
+        torch.cuda.synchronize()
+        own_s = time.perf_counter() - t0
+        routed = {k: v.launches for k, v in kernels.items()}
+        want = ref["logits"].to(dev)
+        scale = float(want.float().abs().max())
+        err = float((logits.float() - want.float()).abs().max())
+        expect(err <= TP_LOGITS_TOL * scale, f"tp_prefill {arch}: logits "
+               f"differ by {err} of scale {scale}")
+        a, b = logits.float().argmax(-1), want.float().argmax(-1)
+        rows = torch.arange(a.shape[0], device=dev)
+        gaps = (want.float()[rows, b] - want.float()[rows, a])[a != b]
+        expect(bool((gaps <= TP_LOGITS_TOL * scale).all()),
+               f"tp_prefill {arch}: argmax differs beyond a near-tie: "
+               f"reference gaps {gaps.tolist()} of scale {scale}")
+        own_flips = sum(int((x != y.to(x.device)).any(-1).sum())
+                        for x, y in zip(own, ref["experts"]))
+        rec = {"arch": arch, "layers": cfg.n_layers, "pinned": pinned,
+               "routed": routed, "pinned_s": pinned_s, "routed_s": own_s,
+               "logits_max_abs_err": err, "logits_scale": scale,
+               "argmax_differs": int((a != b).sum()),
+               "next_token_agrees": int((nxt.long() == b).sum()),
+               "pinned_flips": sum(flips), "routing_flips": own_flips,
+               "moe_calls": len(ref["experts"]),
+               "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "shapes": {k: [list(s) + [n] for s, n in v.shapes.items()]
+                          for k, v in kernels.items() if v.shapes}}
+        if rank == 0:
+            checks = {}
+            if "flash_attention" in seen:
+                q, k, v, causal, lse = seen["flash_attention"]
+                checks["flash_attention"] = {
+                    "q": list(q.shape), "kv": list(k.shape),
+                    "max_abs_err": close(kernels["flash_attention"](
+                        q, k, v, causal), attention_ref(q, k, v, causal),
+                        f"tp_prefill {arch} flash_attention")}
+            if "moe_gmm" in seen:
+                x, w = seen["moe_gmm"]
+                checks["moe_gmm"] = {
+                    "x": list(x.shape), "w": list(w.shape),
+                    "max_abs_err": close(kernels["moe_gmm"](x, w),
+                                         moe_gmm_ref(x, w),
+                                         f"tp_prefill {arch} moe_gmm")}
+            if "mamba_ssm" in seen:
+                x, dt, Bm, Cm, A_, D, h0 = seen["mamba_ssm"][:7]
+                y, h = kernels["mamba_ssm"](x, dt, Bm, Cm, A_, D, h0.clone())
+                wy, wh = mamba_ssm_ref(x, dt, Bm, Cm, A_, D, h0)
+                checks["mamba_ssm"] = {
+                    "x": list(x.shape),
+                    "max_abs_err": max(
+                        close(y, wy, f"tp_prefill {arch} mamba_ssm y",
+                              SCAN_TOL),
+                        close(h, wh, f"tp_prefill {arch} mamba_ssm h",
+                              SCAN_TOL))}
+            rec["kernels_vs_plain"] = checks
+        out["configs"].append(rec)
+        del params, logits
+        free_device()
+    return out
+
+
+def tp_prefill_path(dev, tmp: str) -> tuple[dict, dict]:
+    """The ``tp_prefill`` phase: each config's one-process prefill (its
+    logits and experts kept in ``tmp``), then the two ranks; returns the
+    record and the ranks' launches (summed)."""
+    import torch
+
+    from repro_torch.models import init_params
+    from repro_torch.models import model as MD
+    from repro_torch.models import moe as X
+    ones = []
+    for arch, layers in TP_PREFILL:
+        full, cfg = tp_prefill_cfg(arch, layers)
+        params = init_params(TP_SEED, cfg, device=dev)
+        experts: list = []
+        t0 = time.perf_counter()
+        with patched(X, router_topk=tp_routing(experts)), \
+                torch.inference_mode():
+            logits, _ = MD.apply_prefill(params, cfg,
+                                         {"tokens": tp_prompts(cfg, dev)})
+        torch.cuda.synchronize()
+        ones.append({"arch": arch, "seconds": time.perf_counter() - t0,
+                     "reduced": {"n_layers": f"{full.n_layers} -> {layers}",
+                                 "param_dtype": "float32 -> bfloat16"}})
+        torch.save({"logits": logits.cpu(),
+                    "experts": [e.cpu() for e in experts]},
+                   Path(tmp) / f"tp_prefill_{arch}.pt")
+        del params, logits, experts
+        free_device()
+    t0 = time.perf_counter()
+    ranks = tp_spawn("prefill", tmp)
+    wall = time.perf_counter() - t0
+    launches: dict = {}
+    for i, (arch, layers) in enumerate(TP_PREFILL):
+        _, cfg = tp_prefill_cfg(arch, layers)
+        k = kinds_of(cfg)
+        per_pass = {"flash_attention": k.get("attn", 0),
+                    "moe_gmm": 3 * k.get("moe", 0),
+                    "mamba_ssm": k.get("mamba", 0)}
+        for r in ranks:
+            rec = r["configs"][i]
+            for run in ("pinned", "routed"):
+                expect(rec[run] == per_pass, f"tp_prefill {arch} rank "
+                       f"{r['rank']} {run}: launches {rec[run]}, expected "
+                       f"{per_pass}")
+                for name, n in rec[run].items():
+                    launches[name] = launches.get(name, 0) + n
+    return {"phase": "tp_prefill", "mesh": "x".join(map(str, TP_MESH)),
+            "backend": ranks[0]["backend"],
+            "host_staged_collectives": ranks[0]["host_staged_collectives"],
+            "batch": TP_PREFILL_B, "seq": TP_PREFILL_S,
+            "tolerance": TP_LOGITS_TOL, "one_card": ones, "ranks": ranks,
+            "ranks_wall_s": wall}, {k: v for k, v in launches.items() if v}
+
+
 def dryrun_path() -> dict:
     """The ``dryrun`` phase (host only): ``python -m repro_torch.launch.
     dryrun --mesh both`` for each of DRYRUN_CELLS in subprocesses (all at
@@ -4111,6 +4541,10 @@ def free_device() -> None:
 
 def main() -> int:
     import torch
+    if "--tp-worker" in sys.argv:
+        i = sys.argv.index("--tp-worker")
+        job, rank, rdv, tmp = sys.argv[i + 1:i + 5]
+        return tp_worker(job, int(rank), rdv, tmp)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
               file=sys.stderr)
@@ -4256,6 +4690,16 @@ def main() -> int:
         for name, n in launches.items():
             by_path.setdefault(name, {})["compressed_psum"] = n
     free_device()
+    with tempfile.TemporaryDirectory() as tmp:
+        for phase, path in (("tp_train", tp_train_path),
+                            ("tp_prefill", tp_prefill_path)):
+            t0 = time.perf_counter()
+            record, launches = path(dev, tmp)
+            record["phase_seconds"] = time.perf_counter() - t0
+            emit(record)
+            for name, n in launches.items():
+                by_path.setdefault(name, {})[phase] = n
+            free_device()
     emit(dryrun_path())
 
     print(card.smi, flush=True)             # again, within the tail

@@ -13,13 +13,19 @@ and reads XLA's analyses.  Here one process stands for rank 0 of a fake
 process group of 256 or 512 ranks (``torch.testing``'s ``fake`` backend:
 collectives return at once) and runs one step of the port's sharded design
 under ``FakeTensorMode`` (shapes only, no memory): the arguments are placed
-by the rule tables (``parallel.sharding``), each layer gathers its
-weights, each rank takes its batch shard.  Train cells run the sharded
-Trainer's step (``make_train_step`` with the loss scaled by ``1 / world``,
-``grad_accum`` microbatches placed one by one); prefill and decode cells
-run the serve steps, the batch's sequence split (``seq_over_model``) and
-the caches' sequence split gathered at the step's start (the model runs
-on whole sequences).  A train step of more than ``MAX_TRACED_MICRO``
+by the rule tables (``parallel.sharding``) and each rank takes its batch
+shard.  In the train and prefill cells of the configs whose rule tables
+shard over "model" (qwen2.5-32b, grok-1-314b, jamba-v0.1-52b) each layer
+gathers its weights over the data axes only and rank 0 computes its own
+heads, channels and experts (the tensor-parallel model of
+``models.model``; its all-reduces and all-to-alls are recorded like any
+collective); every other cell, and decode, gathers each layer's weights
+whole.  Train cells run the sharded Trainer's step (``make_train_step``
+with the loss scaled by ``1 / sharding.batch_ranks``, ``grad_accum``
+microbatches placed one by one); prefill and decode cells run the serve
+steps, the batch's sequence split (``seq_over_model``) and the caches'
+sequence split gathered at the step's start (the model runs on whole
+sequences).  A train step of more than ``MAX_TRACED_MICRO``
 microbatches (grok-1's 16) is traced at 2 and 3 and extrapolated, each
 microbatch past the first repeating the same work.  The Mamba and RWKV
 training segments' backward recompute (the plain scan, a Python loop of
@@ -316,7 +322,7 @@ def _batch_local(x, spec):
     return SH.local(pctx.constrain(x, spec[0], *([None] * (x.ndim - 1))))
 
 
-def _placed(cell, mesh, n_chips: int):
+def _placed(cell, mesh):
     """(args, step) of ``cell`` with the arguments placed on ``mesh``."""
     cfg, kind = cell.cfg, cell.kind
     params = cell.args[0]
@@ -329,7 +335,8 @@ def _placed(cell, mesh, n_chips: int):
                          v=SH.distribute(opt.v, pspec, mesh), count=opt.count)
         micro = place_microbatches(batch, cfg.grad_accum, mesh,
                                    all_axes=cfg.fsdp_only)
-        step = make_train_step(cfg, loss_scale=1.0 / n_chips)
+        step = make_train_step(cfg, loss_scale=1.0 / SH.batch_ranks(
+            mesh, all_axes=cfg.fsdp_only))
         return (params, opt, micro), step
     if kind == "prefill":
         batch = cell.args[1]
@@ -400,7 +407,7 @@ def run_cell(arch: str, shape_name: str, mesh_name: str,
     t0 = time.time()
     dp_all = cell.kind == "train" and cell.cfg.fsdp_only
     with cell.mode:
-        args, step = _placed(cell, mesh, n_chips)
+        args, step = _placed(cell, mesh)
         arg_bytes = _local_bytes(args)
         t_place = time.time() - t0
         micro = args[2] if cell.kind == "train" else None

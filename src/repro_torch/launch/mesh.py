@@ -3,8 +3,10 @@ the default process group.
 
 ``make_production_mesh`` is a FUNCTION (importing this module touches no
 process group).  The device type follows the group's backend: ``"cuda"``
-for NCCL, ``"cpu"`` for gloo or the dry run's fake group.  A mesh larger
-than the world raises, as the JAX package's ``parse_mesh`` asserts.
+for NCCL, ``"cpu"`` for gloo or the dry run's fake group; a caller may
+name it (gloo carrying CUDA tensors: ranks that share one card, where
+NCCL takes one rank a device).  A mesh larger than the world raises, as
+the JAX package's ``parse_mesh`` asserts.
 """
 from __future__ import annotations
 
@@ -19,9 +21,11 @@ def device_type() -> str:
     return "cuda" if dist.get_backend() == "nccl" else "cpu"
 
 
-def make_mesh(shape: tuple, axis_names: tuple | None = None):
+def make_mesh(shape: tuple, axis_names: tuple | None = None,
+              device: str | None = None):
     """A ``DeviceMesh`` of ``shape`` named ("data", "model") or ("pod",
-    "data", "model") over the initialised default group."""
+    "data", "model") over the initialised default group, on ``device``
+    (a device type; default the backend's)."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -32,7 +36,7 @@ def make_mesh(shape: tuple, axis_names: tuple | None = None):
     if n > world:
         raise ValueError(f"mesh {'x'.join(map(str, shape))} needs {n} ranks, "
                          f"the process group has {world}")
-    return init_device_mesh(device_type(), tuple(shape),
+    return init_device_mesh(device or device_type(), tuple(shape),
                             mesh_dim_names=axis_names or AXES[len(shape)])
 
 

@@ -11,6 +11,7 @@ package's abstract int32 reads the whole cache too).
 """
 from __future__ import annotations
 
+from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Any
 
@@ -20,7 +21,8 @@ from repro_torch import configs
 from repro_torch._tree import leaves, map_tree, unflatten
 from repro_torch.models import model as MD
 from repro_torch.optim import adamw
-from repro_torch.parallel.sharding import local
+from repro_torch.parallel import ctx as pctx
+from repro_torch.parallel.sharding import distribute, local, param_specs
 
 # Architectures whose optimizer moments are stored in bf16 so that
 # params+moments fit the device memory.
@@ -37,8 +39,9 @@ def value_and_grad(params, cfg, batch, loss_scale: float = 1.0):
     """``jax.value_and_grad(MD.apply_train, has_aux=True)``: ((loss,
     metrics), grads), the metrics detached and the grads a tree of
     ``params``' structure, each of its leaf's dtype.  The grads are those of
-    ``loss * loss_scale``: under a mesh, ``1 / world`` makes the ranks'
-    partial sums the gradient of the whole batch's loss."""
+    ``loss * loss_scale``: under a mesh, ``1 / sharding.batch_ranks``
+    makes the batch ranks' partial sums the gradient of the whole batch's
+    loss."""
     flat = [t.detach().requires_grad_(True) for t in leaves(params)]
     loss, metrics = MD.apply_train(unflatten(params, flat), cfg, batch)
     grads = torch.autograd.grad(loss if loss_scale == 1.0
@@ -49,7 +52,8 @@ def value_and_grad(params, cfg, batch, loss_scale: float = 1.0):
 
 # ================================================================== steps ====
 def make_train_step(cfg, *, lr: float = 3e-4, weight_decay: float = 0.1,
-                    grad_accum: int | None = None, loss_scale: float = 1.0):
+                    eps: float = 1e-8, grad_accum: int | None = None,
+                    loss_scale: float = 1.0):
     """(params, opt, batch) -> (params, opt, metrics), params and opt
     updated in place.
 
@@ -93,19 +97,32 @@ def make_train_step(cfg, *, lr: float = 3e-4, weight_decay: float = 0.1,
                 ms.append(m)
             metrics = {k: torch.stack([m[k] for m in ms]).mean(0)
                        for k in ms[0]}
-        params, opt, om = adamw.update(grads, opt, params, lr=lr,
+        params, opt, om = adamw.update(grads, opt, params, lr=lr, eps=eps,
                                        weight_decay=weight_decay)
         return params, opt, {**metrics, **om}
 
     return train_step
 
 
-def make_prefill_step(cfg):
-    """(params, batch) -> (next_token, cache)."""
+def shard_params(params, cfg, mesh, mode: str = "prefill"):
+    """``params`` as DTensors on ``mesh``, placed by the rule table for
+    ``mode`` (``parallel.sharding.param_specs``)."""
+    specs = param_specs(params, mesh, mode=mode, fsdp_only=cfg.fsdp_only,
+                        moe_ep=cfg.moe_ep)
+    return distribute(params, specs, mesh)
+
+
+def make_prefill_step(cfg, mesh=None):
+    """(params, batch) -> (next_token, cache).  With a ``mesh`` the params
+    are :func:`shard_params`' and the step runs under its policy: on a
+    "model" axis wider than 1 each rank computes its own heads, channels
+    and experts (tensor parallelism, ``models.model``); the batch is this
+    rank's, the logits and the cache whole."""
 
     @torch.inference_mode()
     def prefill_step(params, batch):
-        logits, cache = MD.apply_prefill(params, cfg, batch)
+        with pctx.policy(mesh) if mesh is not None else nullcontext():
+            logits, cache = MD.apply_prefill(params, cfg, batch)
         return torch.argmax(logits, dim=-1).to(torch.int32), cache
 
     return prefill_step
@@ -207,4 +224,4 @@ __all__ = ["BF16_MOMENT_PARAM_THRESHOLD", "CellSpec", "SERVE_DTYPE",
            "abstract_batch", "abstract_cache", "abstract_opt",
            "abstract_params", "fake_mode", "input_specs", "make_decode_step",
            "make_prefill_step", "make_train_step", "moment_dtype_for",
-           "value_and_grad"]
+           "shard_params", "value_and_grad"]

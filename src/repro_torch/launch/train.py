@@ -15,10 +15,13 @@ GPU.  ``--mesh DxM`` / ``PxDxM`` other than ``1x1`` (or any mesh under
 ``torchrun``) trains sharded: the process group comes from the
 ``torchrun`` environment, NCCL on the card, gloo with ``--device cpu``.
 Parameters, AdamW moments and the EF buffers are DTensors placed by the
-rule table (``parallel.sharding.param_specs``), each layer gathers its
-weights as it runs (FSDP style; for the configs with tensor parallelism
-the "model" axis partitions storage, and its ranks repeat the compute),
-and each rank takes its batch shard.  Fault tolerance: ``--crash-at N``
+rule table (``parallel.sharding.param_specs``) and each rank takes its
+batch shard.  Each layer gathers its weights over the data axes as it
+runs (FSDP style); for the configs whose rule tables shard over "model"
+(tensor parallelism: qwen2.5-32b, grok-1-314b, jamba-v0.1-52b) each
+"model" rank keeps its own shard of every TP weight and computes its own
+heads, channels and experts (``models.model``), and with ``fsdp_only``
+every weight is gathered whole.  Fault tolerance: ``--crash-at N``
 raises after step N; rerunning the same command restores from the latest
 checkpoint, on any mesh shape, and continues from the step-indexed data
 stream.
@@ -76,11 +79,13 @@ class Trainer:
     EF buffers are DTensors placed by ``param_specs(..., fsdp_only=
     cfg.fsdp_only, moe_ep=cfg.moe_ep)``; the batch is placed by
     ``batch_specs(all_axes=cfg.fsdp_only)``, the local loss scaled by
-    ``1 / world`` so that the gradients' partial sums count every batch
-    shard once, and the logged losses are all-reduced once per
-    ``log_every`` steps."""
+    ``1 / sharding.batch_ranks`` so that the gradients' partial sums over
+    the batch ranks count every batch shard once (each "model" rank
+    computes its shard's gradient once), and the logged losses are
+    all-reduced once per ``log_every`` steps (every "model" rank holds its
+    batch shard's whole loss)."""
 
-    def __init__(self, cfg, ckpt_dir=None, *, mesh=None, lr=3e-4,
+    def __init__(self, cfg, ckpt_dir=None, *, mesh=None, lr=3e-4, eps=1e-8,
                  compress="none", seed=0, keep=3, device=None):
         self.cfg, self.mesh = cfg, mesh
         self.device = (_device.resolve(device) if mesh is None
@@ -95,15 +100,18 @@ class Trainer:
         self.params = params
         self.opt = adamw.init(self.params, moment_dtype_for(cfg))
         self.world = 1 if mesh is None else mesh.size()
-        self.step_fn = self._build_step(lr)
+        self.batch_ranks = 1 if mesh is None else SH.batch_ranks(
+            mesh, all_axes=cfg.fsdp_only)
+        self.step_fn = self._build_step(lr, eps)
         self.ckpt = (CheckpointManager(ckpt_dir, keep=keep) if ckpt_dir
                      else None)
         self.step = 0
 
-    def _build_step(self, lr):
-        scale = 1.0 / self.world
+    def _build_step(self, lr, eps):
+        scale = 1.0 / self.batch_ranks
         if self.compressor.method == "none":
-            base = make_train_step(self.cfg, lr=lr, loss_scale=scale)
+            base = make_train_step(self.cfg, lr=lr, eps=eps,
+                                   loss_scale=scale)
 
             def stepc(params, opt, ef, batch):
                 p, o, m = base(params, opt, batch)
@@ -115,7 +123,8 @@ class Trainer:
                 # gradients of the f32 params, then the compression NT chain
                 (_, m), grads = value_and_grad(params, self.cfg, batch, scale)
                 grads, ef, cm = compressor.compress(grads, ef)
-                params, opt, om = adamw.update(grads, opt, params, lr=lr)
+                params, opt, om = adamw.update(grads, opt, params, lr=lr,
+                                               eps=eps)
                 return params, opt, ef, {**m, **om, **cm}
         if self.mesh is None:
             return stepc
@@ -234,8 +243,8 @@ def main(argv=None) -> int:
     losses = tr.run(args.steps, args.batch, args.seq, seed=args.seed,
                     ckpt_every=args.ckpt_every, crash_at=args.crash_at,
                     log=say)
-    say(f"[train] done: first loss {losses[0]:.4f} "
-        f"last loss {losses[-1]:.4f}")
+    say(f"[train] done: first loss {losses[0]:.6f} "
+        f"last loss {losses[-1]:.6f}")
     return 0
 
 

@@ -16,12 +16,33 @@ Entry points per layer:
 The JAX package's ``causal_attention`` pads S to a block multiple for its
 XLA fallback; the CUDA kernel masks the ragged edge of S itself, and the
 backward slices a ragged last query block, so nothing pads here.
+
+Tensor parallelism (``tp=True`` in ``attn_train`` / ``attn_prefill``: the
+weights are this rank's shards over "model"): each rank projects its own
+columns of ``wq`` / ``wk`` / ``wv`` (and of qwen's bias), which need not
+hold whole heads (qwen2.5-32b's 40 heads over 16 ranks are 2.5 a rank,
+and 8 KV heads are half a head a rank).  :func:`head_split` gives rank r
+the q heads ``[r H // n, (r + 1) H // n)`` and the KV heads they read; one
+all-to-all each forms the rank's whole q heads and sends each KV head to
+every rank whose q heads read it (``parallel.ctx.exchange``).  RoPE and
+qk-norm run on whole heads (the replicated norm weights' gradients summed
+over the ranks), the kernel on the rank's heads, and one more
+all-to-all returns its output to column shards for the row-parallel
+``wo``, whose partial sums are added over the ranks.  Where the heads
+divide over the ranks as the columns do, every exchange is the identity
+and sends nothing.  A rank whose heads straddle a KV group boundary
+without covering whole groups reads its KV heads repeated once per q head
+(G = 1); no config's split does.  A prefill gathers the ranks' K / V
+columns instead (it returns the whole cache) and takes its heads from
+them.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch._tree import map_tree
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.parallel import ctx as pctx
 
 from .layers import (apply_mrope, apply_rope, linear, linear_init, rmsnorm,
                      rmsnorm_init)
@@ -52,16 +73,87 @@ def _project_qkv(p, x, cfg, positions):
     q = linear(p["wq"], x).reshape(B, S, H, hd)
     k = linear(p["wk"], x).reshape(B, S, Kv, hd)
     v = linear(p["wv"], x).reshape(B, S, Kv, hd)
+    q, k = _rotate(q, k, p, cfg, positions)
+    return q, k, v.contiguous()
+
+
+def _rotate(q, k, p, cfg, positions):
+    """qk-norm (where the config has it), then RoPE, on whole heads."""
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q)
         k = rmsnorm(p["k_norm"], k)
     if cfg.mrope_sections:
-        q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
-        k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+        return (apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections),
+                apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections))
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta))
+
+
+def head_split(H: int, Kv: int, n: int, r: int) -> tuple[int, int, int, int]:
+    """Rank ``r`` of ``n``'s q heads [a, b) (a balanced contiguous split)
+    and the KV heads [ka, kb) they read."""
+    if H < n:
+        raise ValueError(f"{H} heads over {n} tensor-parallel ranks")
+    G = H // Kv
+    a, b = r * H // n, (r + 1) * H // n
+    return a, b, a // G, (b - 1) // G + 1
+
+
+def _kv_rows(a: int, b: int, ka: int, kb: int, G: int):
+    """The local KV head each local q head reads, where the rank's heads
+    do not map onto its KV heads in groups of one size (None where they
+    do: whole groups, or one KV head)."""
+    if kb - ka == 1 or (a % G == 0 and b % G == 0):
+        return None
+    return [(a + i) // G - ka for i in range(b - a)]
+
+
+def _project_qkv_tp(p, x, cfg, positions, whole_kv: bool = False):
+    """This rank's q heads and the KV heads they read, from its column
+    shards of the projections; with ``whole_kv`` also every KV head (the
+    ranks' columns gathered), for a prefill's cache."""
+    B, S, _ = x.shape
+    H, Kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    n, r = pctx.tp_size(), pctx.tp_rank()
+    split = [head_split(H, Kv, n, s) for s in range(n)]
+    a, b, ka, kb = split[r]
+    x = pctx.copy_to_tp(x)
+    if cfg.qk_norm:     # replicated weights applied to the rank's own heads
+        p = {**p, "q_norm": map_tree(pctx.copy_to_tp, p["q_norm"]),
+             "k_norm": map_tree(pctx.copy_to_tp, p["k_norm"])}
+    q = pctx.exchange(linear(p["wq"], x), pctx.shards(H * hd, n),
+                      [[(s[0] * hd, s[1] * hd)] for s in split])
+    q = q.reshape(B, S, b - a, hd)
+    k, v = linear(p["wk"], x), linear(p["wv"], x)
+    if whole_kv:
+        k = pctx.gather_tp(k, -1).reshape(B, S, Kv, hd)
+        v = pctx.gather_tp(v, -1).reshape(B, S, Kv, hd)
+        q, k = _rotate(q, k, p, cfg, positions)
+        kv = (k, v)
+        k, v = k[:, :, ka:kb], v[:, :, ka:kb]
     else:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v.contiguous()
+        want = [[(s[2] * hd, s[3] * hd)] for s in split]
+        k = pctx.exchange(k, pctx.shards(Kv * hd, n), want)
+        v = pctx.exchange(v, pctx.shards(Kv * hd, n), want)
+        q, k = _rotate(q, k.reshape(B, S, kb - ka, hd), p, cfg, positions)
+        v, kv = v.reshape(B, S, kb - ka, hd), None
+    rows = _kv_rows(a, b, ka, kb, H // Kv)
+    if rows is not None:
+        idx = torch.tensor(rows, device=x.device)
+        k, v = k.index_select(2, idx), v.index_select(2, idx)
+    return q, k.contiguous(), v.contiguous(), kv
+
+
+def _out_tp(p, o, cfg):
+    """The local heads' output (B, S, h, hd) back to this rank's column
+    shard, through the row-parallel ``wo``, added over the ranks."""
+    B, S, _, hd = o.shape
+    H, Kv, n = cfg.n_heads, cfg.n_kv_heads, pctx.tp_size()
+    have = [head_split(H, Kv, n, s)[:2] for s in range(n)]
+    o = pctx.exchange(o.reshape(B, S, -1), [(a * hd, b * hd)
+                                           for a, b in have],
+                      [[c] for c in pctx.shards(H * hd, n)])
+    return pctx.reduce_from_tp(linear(p["wo"], o))
 
 
 def causal_attention(q, k, v):
@@ -135,14 +227,21 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None
 
 
-def attn_train(p, x, cfg, positions):
+def attn_train(p, x, cfg, positions, tp: bool = False):
+    if tp:
+        q, k, v, _ = _project_qkv_tp(p, x, cfg, positions)
+        return _out_tp(p, FlashAttention.apply(q, k, v, cfg.attn_block), cfg)
     q, k, v = _project_qkv(p, x, cfg, positions)
     o = FlashAttention.apply(q, k, v, cfg.attn_block)
     B, S, _, _ = o.shape
     return linear(p["wo"], o.reshape(B, S, -1))
 
 
-def attn_prefill(p, x, cfg, positions):
+def attn_prefill(p, x, cfg, positions, tp: bool = False):
+    """-> (y, (k, v)), the layer's whole K / V for the cache."""
+    if tp:
+        q, k, v, kv = _project_qkv_tp(p, x, cfg, positions, whole_kv=True)
+        return _out_tp(p, causal_attention(q, k, v), cfg), kv
     q, k, v = _project_qkv(p, x, cfg, positions)
     o = causal_attention(q, k, v)
     B, S, _, _ = o.shape
@@ -194,4 +293,4 @@ def attn_decode(p, x, cfg, k_cache, v_cache, pos: int):
 
 __all__ = ["FlashAttention", "NEG_INF", "attn_decode", "attn_init",
            "attn_prefill", "attn_train", "causal_attention",
-           "decode_attention"]
+           "decode_attention", "head_split"]

@@ -11,6 +11,15 @@ Conventions (as in the JAX package):
     production, f32 for CPU smoke tests); norms and RoPE compute in f32.
 
 ``chunked_softmax_xent`` is the training loss.
+
+Tensor parallelism (``tp=True``; the weights are this rank's shards over
+the "model" axis, placed by ``parallel.sharding.param_specs``, and the
+group is ``parallel.ctx``'s): the embedding is vocab-parallel (a masked
+lookup of the rank's rows, one all-reduce), the MLP a column-parallel
+``gate`` / ``up`` and a row-parallel ``down`` (one all-reduce), the loss a
+vocab-parallel cross-entropy over the head's column shards (per chunk one
+all-reduce each of the max, without gradient, the sum of exponentials and
+the gold logit).  Activations in and out are replicated over "model".
 """
 from __future__ import annotations
 
@@ -19,6 +28,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.parallel import ctx as pctx
 
 
 def normal(gen: torch.Generator, shape, device) -> torch.Tensor:
@@ -88,8 +99,17 @@ def embed_init(gen, vocab: int, dim: int, dtype=torch.float32, device=None):
     return {"table": normal(gen, (vocab, dim), device).mul_(0.02).to(dtype)}
 
 
-def embed(p, ids):
-    return p["table"][ids.long()]
+def embed(p, ids, tp: bool = False):
+    """Rows of ``p["table"]`` for ``ids``; with ``tp`` the table is this
+    rank's contiguous rows of the vocab: the ids outside them give exact
+    zeros, and the ranks' lookups are added."""
+    if not tp:
+        return p["table"][ids.long()]
+    t = p["table"]
+    local = ids.long() - pctx.tp_rank() * t.shape[0]
+    hit = (local >= 0) & (local < t.shape[0])
+    rows = t[local.clamp(0, t.shape[0] - 1)].masked_fill(~hit[..., None], 0)
+    return pctx.reduce_from_tp(rows)
 
 
 # ------------------------------------------------------------------ RoPE ----
@@ -151,17 +171,22 @@ def mlp_init(gen, d: int, d_ff: int, kind: str = "swiglu",
             "down": linear_init(gen, d_ff, d, dtype=dtype, device=device)}
 
 
-def mlp(p, x, kind: str = "swiglu"):
+def mlp(p, x, kind: str = "swiglu", tp: bool = False):
+    """With ``tp``: ``gate`` / ``up`` this rank's columns, ``down`` its
+    rows; the partial products are added over the ranks."""
+    if tp:
+        x = pctx.copy_to_tp(x)
     if kind == "swiglu":
-        return linear(p["down"],
-                      F.silu(linear(p["gate"], x)) * linear(p["up"], x))
-    # jax.nn.gelu defaults to the tanh approximation
-    return linear(p["down"], F.gelu(linear(p["up"], x), approximate="tanh"))
+        y = linear(p["down"],
+                   F.silu(linear(p["gate"], x)) * linear(p["up"], x))
+    else:   # jax.nn.gelu defaults to the tanh approximation
+        y = linear(p["down"], F.gelu(linear(p["up"], x), approximate="tanh"))
+    return pctx.reduce_from_tp(y) if tp else y
 
 
 # ------------------------------------------------- chunked cross-entropy ----
 def chunked_softmax_xent(x, head_w, labels, *, chunk: int = 512,
-                         label_smoothing: float = 0.0):
+                         label_smoothing: float = 0.0, tp: bool = False):
     """Cross-entropy over a huge vocab without materialising (B, S, V).
 
     x: (B, S, D) final hidden states; head_w: (D, V); labels: (B, S) int.
@@ -169,7 +194,8 @@ def chunked_softmax_xent(x, head_w, labels, *, chunk: int = 512,
     each chunk's logits are recomputed in the backward
     (``torch.utils.checkpoint``), so at most one (B, chunk, V) block of f32
     logits is alive.  Returns the mean loss over all tokens (labels ==
-    -100 are masked out).
+    -100 are masked out).  With ``tp`` ``head_w`` is this rank's columns
+    of the vocab (vocab-parallel: :func:`_xent_tp_body`).
     """
     B, S, D = x.shape
     V = head_w.shape[1]
@@ -187,6 +213,9 @@ def chunked_softmax_xent(x, head_w, labels, *, chunk: int = 512,
         mask = (ll >= 0).float()
         return ((logz - gold) * mask).sum(), mask.sum()
 
+    if tp:
+        x = pctx.copy_to_tp(x)
+        body = _xent_tp_body(head_w, label_smoothing)
     tot = cnt = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(nchunk):
         part = slice(i * csz, (i + 1) * csz)
@@ -194,6 +223,33 @@ def chunked_softmax_xent(x, head_w, labels, *, chunk: int = 512,
                           use_reentrant=False)
         tot, cnt = tot + t, cnt + c
     return tot / cnt.clamp(min=1.0)
+
+
+def _xent_tp_body(head_w, label_smoothing: float):
+    """One chunk's (loss sum, token count) over this rank's vocab columns
+    ``head_w`` (D, V / tp): the max over the whole vocab (no gradient:
+    the log-sum-exp does not depend on it), the sum of exponentials and
+    the gold logit each added over the ranks; a label outside the rank's
+    columns gives an exact zero."""
+    Vl = head_w.shape[1]
+    lo = pctx.tp_rank() * Vl
+    n_vocab = Vl * pctx.tp_size()
+
+    def body(xx, ll):
+        logits = (xx @ head_w.to(xx.dtype)).float()       # (B, c, V / tp)
+        m = pctx.max_tp(logits.detach().amax(-1))
+        se = pctx.reduce_from_tp(torch.exp(logits - m[..., None]).sum(-1))
+        logz = m + torch.log(se)
+        local = ll.long() - lo
+        hit = (local >= 0) & (local < Vl)
+        gold = logits.gather(-1, local.clamp(0, Vl - 1)[..., None])[..., 0]
+        gold = pctx.reduce_from_tp(gold.masked_fill(~hit, 0))
+        if label_smoothing:
+            mean = pctx.reduce_from_tp(logits.sum(-1)) / n_vocab
+            gold = (1 - label_smoothing) * gold + label_smoothing * mean
+        mask = (ll >= 0).float()
+        return ((logz - gold) * mask).sum(), mask.sum()
+    return body
 
 
 __all__ = ["apply_mrope", "apply_rope", "chunked_softmax_xent", "embed",

@@ -23,6 +23,24 @@ f32; ``softplus(dt_proj(dt) + dt_bias)`` in f32; the scan in f32 on
 its input above 20 where ``jax.nn.softplus`` adds log1p(exp(-x)) < e^-20,
 which is below half an f32 step of any input above 20: the same numbers
 (and the same gradient, sigmoid(x), which rounds to 1 in f32 there).
+
+Tensor parallelism (``tp=True``: the weights are this rank's shards over
+"model"): the channels ``d_inner`` are split over the ranks, rank r's
+block ``c_r = [r di / tp, (r + 1) di / tp)``, and with them ``conv_w``,
+``conv_b``, ``dt_proj``, ``dt_bias``, ``A_log``, ``D``, the rows of the
+row-parallel ``x_proj`` and ``out_proj``, and the scan's state.  The fused
+``in_proj`` (d, 2 di) is split by the rule table's contiguous columns, so
+rank r holds x's or z's columns of two other blocks (at tp 2 rank 0 holds
+all of x, rank 1 all of z).  One all-to-all of the weight's columns pairs
+them: rank r gets x's and z's columns of c_r (``pctx.exchange``; its
+gradient goes back the same way).  The weight is exchanged, not the
+activations GSPMD would reshard, because its (d, 2 di / tp) columns are
+fewer bytes than a step's (tokens, 2 di / tp) activations at every train
+and prefill shape (d = 4,096 against thousands of tokens a microbatch)
+and their number does not grow with the batch.  ``x_proj``'s small
+(B, S, dt_rank + 2 d_state) partial product is all-reduced, and so is its
+gradient (it feeds each rank's channels again); ``out_proj``'s partial
+sums are added over the ranks.  A given SSM state is the rank's channels.
 """
 from __future__ import annotations
 
@@ -32,6 +50,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.mamba_scan import segmented_scan, selective_scan
+from repro_torch.parallel import ctx as pctx
 
 from .layers import linear, linear_init, normal
 
@@ -97,20 +116,38 @@ def ssm_scan(x, dt, Bmat, Cmat, A, D, h0=None, h_out=None,
     return selective_scan(*args, h0, h_out)
 
 
-def mamba_apply(p, u, cfg, conv_state=None, ssm_state=None):
+def _paired_in_proj(w):
+    """This rank's columns of the fused ``in_proj`` (d, 2 di / tp) ->
+    x's and z's columns of its channel block, from one exchange."""
+    n = pctx.tp_size()
+    cols = w.shape[1] * n
+    di = cols // 2
+    want = [[(lo, hi), (di + lo, di + hi)] for lo, hi in pctx.shards(di, n)]
+    return pctx.exchange(w, pctx.shards(cols, n), want)
+
+
+def mamba_apply(p, u, cfg, conv_state=None, ssm_state=None,
+                tp: bool = False):
     """u: (B, S, d). Returns (out, (conv_state, ssm_state)).
 
     A given ``ssm_state`` is updated **in place** to the final state and
     returned (the JAX package returns a new array); the conv state returned
-    is a new tensor either way."""
+    is a new tensor either way.  With ``tp`` the states hold this rank's
+    channels."""
     B, S, d = u.shape
     ds, dtr = cfg.mamba_d_state, cfg.dt_rank
-    xz = linear(p["in_proj"], u)
+    if tp:
+        u = pctx.copy_to_tp(u)
+        xz = u @ _paired_in_proj(p["in_proj"]["w"]).to(u.dtype)
+    else:
+        xz = linear(p["in_proj"], u)
     x, z = torch.chunk(xz, 2, dim=-1)
     x, conv_state = _causal_conv(p, x, conv_state)
     x = F.silu(x)
 
     dbl = linear(p["x_proj"], x)                            # (B,S,dtr+2ds)
+    if tp:
+        dbl = pctx.reduce_tp(dbl)
     dt_raw = dbl[..., :dtr]
     Bmat = dbl[..., dtr:dtr + ds].float()
     Cmat = dbl[..., dtr + ds:].float()
@@ -120,7 +157,7 @@ def mamba_apply(p, u, cfg, conv_state=None, ssm_state=None):
     y, ssm_state = ssm_scan(x.float(), dt, Bmat, Cmat, A, p["D"].float(),
                             ssm_state, ssm_state, cfg.mamba_chunk)
     out = linear(p["out_proj"], y.to(u.dtype) * F.silu(z))
-    return out, (conv_state, ssm_state)
+    return (pctx.reduce_from_tp(out) if tp else out), (conv_state, ssm_state)
 
 
 __all__ = ["mamba_apply", "mamba_init", "ssm_scan"]

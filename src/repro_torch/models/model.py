@@ -17,8 +17,9 @@ result:
   - layers are always a list; the JAX package stacks homogeneous layers for
     ``lax.scan`` (:func:`repro_torch.convert.model_params_from_numpy` takes
     either layout);
-  - ``repro.parallel.ctx.constrain_acts`` is a no-op on one device and is
-    dropped;
+  - ``repro.parallel.ctx.constrain_acts`` is not called: its "seq" and
+    "dmodel" modes are hints to GSPMD, and the port's layer-boundary
+    activations stay replicated over "model" (no sequence parallelism);
   - ``apply_prefill`` and ``apply_decode`` write the caches in place and
     return them: the KV cache rows, the conv state and the SSM state, the
     RWKV (hd, hd) state (each scan kernel writes its final state where it
@@ -31,6 +32,19 @@ as serving: the MoE's expert matmuls (three a MoE layer, each with a
 ``cfg.mamba_chunk`` / ``cfg.rwkv_chunk``-step segment, each segment
 recomputed by the plain scan in the backward; with ``remat="full"`` the
 layer's forward runs again in the backward, and its launches with it.
+
+Under a mesh (``Trainer(mesh=...)``, the dry run, a sharded prefill) the
+params are DTensors.  Where ``parallel.ctx`` has a "model" axis wider than
+1 (the configs whose rule tables shard over "model": qwen2.5-32b,
+grok-1-314b, jamba-v0.1-52b), the train and prefill steps gather each
+weight over the batch axes only (``sharding.gather_local``, which names
+the weights it left split, from their placements) and every module whose
+weights stay split over "model" runs its tensor-parallel form (Megatron-style column / row pairs: ``layers.embed`` / ``mlp`` /
+``chunked_softmax_xent``, ``attention``, ``moe``, ``mamba``), each rank on
+its own heads, channels and experts; a module whose weights the rule table
+left whole runs as on one device on every rank.  Otherwise (``fsdp_only``,
+a 1-wide "model" axis, and decode) each layer gathers its weights whole
+(``sharding.gather``) and every rank computes on them.
 """
 from __future__ import annotations
 
@@ -40,7 +54,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import _device
-from repro_torch.parallel.sharding import gather
+from repro_torch.parallel import ctx as pctx
+from repro_torch.parallel.sharding import gather, gather_local
 
 from . import attention as A
 from . import mamba as M
@@ -85,24 +100,26 @@ def layer_init(gen, cfg, i: int, dtype, device=None):
     return p
 
 
-def layer_apply(p, x, cfg, i: int, positions):
+def layer_apply(p, x, cfg, i: int, positions, tp=frozenset()):
     """Full-sequence layer for training.  Returns (x, aux_loss); the aux
-    loss is the MoE router's (0 for other channels)."""
+    loss is the MoE router's (0 for other channels).  ``tp``: the modules
+    whose weights in ``p`` are this rank's shards over "model" (their
+    tensor-parallel forms run)."""
     mix, ch = cfg.mixer_kind(i), cfg.channel_kind(i)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = norm_apply(cfg.norm, p["norm1"], x)
     if mix == "attn":
-        h = A.attn_train(p["attn"], h, cfg, positions)
+        h = A.attn_train(p["attn"], h, cfg, positions, "attn" in tp)
     elif mix == "mamba":
-        h, _ = M.mamba_apply(p["mamba"], h, cfg)
+        h, _ = M.mamba_apply(p["mamba"], h, cfg, tp="mamba" in tp)
     else:
         h, _ = R.timemix_apply(p["rwkv_tm"], h, cfg)
     x = x + h
     h = norm_apply(cfg.norm, p["norm2"], x)
     if ch == "mlp":
-        h = mlp(p["mlp"], h, cfg.mlp_kind)
+        h = mlp(p["mlp"], h, cfg.mlp_kind, "mlp" in tp)
     elif ch == "moe":
-        h, aux = X.moe_apply(p["moe"], h, cfg)
+        h, aux = X.moe_apply(p["moe"], h, cfg, "moe" in tp)
     else:
         h, _ = R.channelmix_apply(p["rwkv_cm"], h, cfg)
     return x + h, aux
@@ -127,16 +144,16 @@ def layer_cache_init(cfg, i: int, B: int, max_len: int, dtype, device=None):
                                device=device)}
 
 
-def _channel(p, x, cfg, i: int, cache):
+def _channel(p, x, cfg, i: int, cache, tp=frozenset()):
     """The channel half of layer i; the RWKV channel mix reads the previous
     token from ``cache["x_cm"]`` (zero after ``layer_cache_init``) and
     writes its input's last token there."""
     h = norm_apply(cfg.norm, p["norm2"], x)
     ch = cfg.channel_kind(i)
     if ch == "mlp":
-        return x + mlp(p["mlp"], h, cfg.mlp_kind)
+        return x + mlp(p["mlp"], h, cfg.mlp_kind, "mlp" in tp)
     if ch == "moe":
-        h, _ = X.moe_apply(p["moe"], h, cfg)
+        h, _ = X.moe_apply(p["moe"], h, cfg, "moe" in tp)
         return x + h
     h, x_last = R.channelmix_apply(p["rwkv_cm"], h, cfg, cache["x_cm"])
     cache["x_cm"].copy_(x_last)
@@ -192,12 +209,13 @@ def _positions(cfg, batch, B, S, device):
     return pos
 
 
-def embed_inputs(params, cfg, batch):
+def embed_inputs(params, cfg, batch, tp: bool = False):
     """Token ids or precomputed frontend embeddings -> (B, S, d) activations
-    in the compute dtype."""
+    in the compute dtype; ``tp``: the embedding table is this rank's vocab
+    rows."""
     cdt = DTYPES[cfg.compute_dtype]
     if cfg.frontend == "tokens":
-        return embed(params["embed"], batch["tokens"]).to(cdt)
+        return embed(params["embed"], batch["tokens"], tp).to(cdt)
     return norm_apply(cfg.norm, params["in_norm"], batch["embeds"].to(cdt))
 
 
@@ -210,35 +228,54 @@ def _remat(fn, cfg):
                               "config uses it)")
 
 
-def _outer(params):
-    """``params`` with everything but the layers gathered (each layer is
-    gathered as it runs)."""
-    return {k: v if k == "layers" else gather(v) for k, v in params.items()}
+def _gather(tree, tp: bool = True):
+    """(``tree`` gathered, the top-level keys of its modules whose weights
+    stay this rank's shards over "model", which run their tensor-parallel
+    forms).  Over the batch axes only where ``tp`` and the policy has a
+    "model" axis wider than 1 (``sharding.gather_local`` reads the split
+    from the placements), whole otherwise."""
+    if tp and pctx.tp_size() > 1:
+        tree, split = gather_local(tree)
+        return tree, frozenset(path[0] for path in split)
+    return gather(tree), frozenset()
 
 
-def forward_hidden(params, cfg, batch):
-    """Runs the full stack; returns (hidden (B, S, d), aux_loss)."""
-    params = _outer(params)
-    x = embed_inputs(params, cfg, batch)
+def _outer(params, tp: bool = True):
+    """``params`` with everything but the layers gathered by :func:`_gather`
+    (each layer is gathered as it runs), and its split keys."""
+    outer, split = _gather({k: v for k, v in params.items()
+                            if k != "layers"}, tp)
+    return {k: outer.get(k, v) for k, v in params.items()}, split
+
+
+def _hidden(params, tp, cfg, batch):
+    """:func:`forward_hidden` on ``_outer``'s result."""
+    x = embed_inputs(params, cfg, batch, "embed" in tp)
     B, S, _ = x.shape
     positions = _positions(cfg, batch, B, S, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, lp in enumerate(params["layers"]):
         def one(xx, lp, i=i):
-            return layer_apply(gather(lp), xx, cfg, i, positions)
+            lp, ltp = _gather(lp)
+            return layer_apply(lp, xx, cfg, i, positions, ltp)
         x, a = _remat(one, cfg)(x, lp)
         aux = aux + a
     return x, aux
 
 
+def forward_hidden(params, cfg, batch):
+    """Runs the full stack; returns (hidden (B, S, d), aux_loss)."""
+    return _hidden(*_outer(params), cfg, batch)
+
+
 def apply_train(params, cfg, batch):
     """batch: tokens|embeds, labels (B, S) int (-100 = masked) ->
     (loss, {"xent", "aux", "loss"})."""
-    params = _outer(params)
-    x, aux = forward_hidden(params, cfg, batch)
+    params, tp = _outer(params)
+    x, aux = _hidden(params, tp, cfg, batch)
     x = norm_apply(cfg.norm, params["final_norm"], x)
     xent = chunked_softmax_xent(x, params["head"]["w"], batch["labels"],
-                                chunk=cfg.loss_chunk)
+                                chunk=cfg.loss_chunk, tp="head" in tp)
     loss = xent + aux
     return loss, {"xent": xent, "aux": aux, "loss": loss}
 
@@ -276,8 +313,8 @@ def apply_prefill(params, cfg, batch, max_len: int | None = None):
     decode can write in place; S > ``max_len`` raises, as the JAX package's
     cache update fails there.
     """
-    params = _outer(params)
-    x = embed_inputs(params, cfg, batch)
+    params, outer_tp = _outer(params)
+    x = embed_inputs(params, cfg, batch, "embed" in outer_tp)
     B, S, _ = x.shape
     max_len = max_len or S
     if S > max_len:
@@ -287,14 +324,22 @@ def apply_prefill(params, cfg, batch, max_len: int | None = None):
     cdt = x.dtype
     cache = []
     for i, lp in enumerate(params["layers"]):
-        lp = gather(lp)
+        lp, tp = _gather(lp)
         lc = layer_cache_init(cfg, i, B, max_len, cdt, x.device)
         h = norm_apply(cfg.norm, lp["norm1"], x)
         mix = cfg.mixer_kind(i)
         if mix == "attn":
-            h, (k, v) = A.attn_prefill(lp["attn"], h, cfg, positions)
+            h, (k, v) = A.attn_prefill(lp["attn"], h, cfg, positions,
+                                       "attn" in tp)
             lc["k"][:, :S] = k.to(cdt)
             lc["v"][:, :S] = v.to(cdt)
+        elif mix == "mamba" and "mamba" in tp:   # the rank's channels
+            n = pctx.tp_size()
+            ssm = lc["ssm"].chunk(n, 1)[pctx.tp_rank()].clone()
+            h, (conv, _) = M.mamba_apply(lp["mamba"], h, cfg,
+                                         ssm_state=ssm, tp=True)
+            lc["conv"].copy_(pctx.gather_tp(conv, -1))
+            lc["ssm"].copy_(pctx.gather_tp(ssm, 1))
         elif mix == "mamba":
             h, (conv, _) = M.mamba_apply(lp["mamba"], h, cfg,
                                          ssm_state=lc["ssm"])
@@ -303,10 +348,12 @@ def apply_prefill(params, cfg, batch, max_len: int | None = None):
             h, (x_last, _) = R.timemix_apply(lp["rwkv_tm"], h, cfg,
                                              state=lc["wkv"])
             lc["x_tm"].copy_(x_last)
-        x = _channel(lp, x + h, cfg, i, lc)
+        x = _channel(lp, x + h, cfg, i, lc, tp)
         cache.append(lc)
     x = norm_apply(cfg.norm, params["final_norm"], x[:, -1:, :])
     logits = linear(params["head"], x)[:, 0, :]
+    if "head" in outer_tp:                       # the ranks' vocab columns
+        logits = pctx.gather_tp(logits, -1)
     return logits, cache
 
 
@@ -315,7 +362,7 @@ def apply_decode(params, cfg, cache, batch, pos: int):
 
     Returns (logits (B, V), cache); the cache tensors are updated in place.
     """
-    params = _outer(params)
+    params, _ = _outer(params, tp=False)
     x = embed_inputs(params, cfg, batch)
     pos = int(pos)
     new = []

@@ -18,12 +18,8 @@ Rounding points kept from the JAX package: the router computes in f32 from
 the combine accumulates in the compute dtype; the expert weights are taken
 in ``x.dtype`` at use (the kernel rounds f32 weights to bf16 as it loads
 them, the same values as a cast).  Differences that change no result:
-  - ``pctx.constrain`` (sharding annotations) is dropped, and with it the
-    ``moe_ep`` branch, whose math is the same: the port's sharded step
-    runs each layer on gathered weights, so expert parallelism is the
-    experts' placement alone (``(TP, f, None)`` / ``(TP, None, f)`` from
-    ``parallel.sharding.param_specs``); the router's batch means go
-    through ``pctx.batch_mean``, a no-op on one device;
+  - ``pctx.constrain`` (sharding annotations) is dropped; the router's
+    batch means go through ``pctx.batch_mean``, a no-op on one device;
   - ``torch.topk`` does not promise an order among equal values, so the
     top k come from a stable descending sort, which keeps the lower expert
     first as ``jax.lax.top_k`` does;
@@ -33,6 +29,19 @@ them, the same values as a cast).  Differences that change no result:
     (``index_add_`` there uses atomics in no fixed order).
 The ``moe_dense_mode`` branch (every expert on every token, a smoke-test
 fallback no config sets) stays plain einsum.
+
+Tensor parallelism (``tp=True``: the expert stacks are this rank's shards
+over "model"): the router and the dispatch run on every rank (the
+activations are replicated over "model"; both are cheap).  Without expert
+parallelism (grok-1) ``gate`` / ``up`` hold the rank's ``d_ff / tp``
+columns of every expert and ``down`` its rows: the grouped matmuls run on
+them and each rank's combine is a partial sum.  With ``moe_ep`` (Jamba)
+the stacks hold the rank's ``E / tp`` whole experts: the grouped matmuls
+run on their slice of the dispatched rows and the combine takes only
+their slots.  Either way the ranks' combines are added (one all-reduce),
+and the dispatched rows and the gates enter the rank's share through
+``pctx.copy_to_tp`` so that their gradients are whole; no all-to-all is
+needed while activations are replicated over "model".
 """
 from __future__ import annotations
 
@@ -122,13 +131,16 @@ def _group_dispatch(x, gates, idx, E: int, C: int):
             torch.gather(g_flat, 1, order))
 
 
-def _group_combine(y_exp, slot, keep, t_s, g_s, T: int):
+def _group_combine(y_exp, slot, keep, t_s, g_s, T: int, e0: int = 0):
     """y_exp: (G, E, C, d) -> y (G, T, d) weighted by the router gates.
     Each token's k contributions are added in sorted order, from zero, in
-    y_exp's dtype."""
+    y_exp's dtype.  ``y_exp`` may hold the experts [e0, e0 + E) alone
+    (expert parallelism): the slots of other experts add exact zeros."""
     G, E, C, d = y_exp.shape
     rows = torch.arange(G, device=y_exp.device)[:, None]
-    contrib = y_exp.reshape(G, E * C, d)[rows, slot.clamp(max=E * C - 1)] \
+    local = slot - e0 * C
+    keep = keep & (local >= 0) & (local < E * C)
+    contrib = y_exp.reshape(G, E * C, d)[rows, local.clamp(0, E * C - 1)] \
         * (g_s * keep)[..., None]                            # (G, TK, d)
     k = slot.shape[1] // T
     # where each token's k entries sit in the sorted order, ascending
@@ -139,15 +151,17 @@ def _group_combine(y_exp, slot, keep, t_s, g_s, T: int):
     return y
 
 
-def moe_apply(p, x, cfg):
+def moe_apply(p, x, cfg, tp: bool = False):
     """x: (B, S, d) -> (y, aux_loss).  Grouped capacity dispatch (group =
-    batch row)."""
+    batch row); with ``tp`` the expert stacks are this rank's shards."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.moe_top_k
 
     gates, idx, aux = router_topk(p, x, cfg)          # (B, S, k)
 
     if cfg.moe_dense_mode:
+        if tp:
+            raise ValueError("moe_dense_mode has no tensor-parallel form")
         # tiny-config fallback: run every expert on every token (smoke tests)
         xf = x.reshape(B * S, d)
         h = torch.einsum("td,edf->tef", xf, p["gate"].to(xf.dtype))
@@ -164,12 +178,19 @@ def moe_apply(p, x, cfg):
     x_exp, slot, keep, t_s, g_s = _group_dispatch(x, gates, idx, E, C)
     # (G, E, C, d) -> (E, G * C, d): one grouped matmul per projection
     xe = x_exp.transpose(0, 1).reshape(E, B * C, d)
+    e0 = 0
+    if tp:
+        xe, g_s = pctx.copy_to_tp(xe), pctx.copy_to_tp(g_s)
+        El = p["gate"].shape[0]
+        if El != E:                 # expert parallel: this rank's experts
+            e0 = pctx.tp_rank() * El
+            xe = xe[e0:e0 + El]
     h = grouped_matmul(xe, p["gate"])
     u = grouped_matmul(xe, p["up"])
     ye = grouped_matmul(F.silu(h) * u, p["down"])             # (E, G*C, d)
-    y_exp = ye.reshape(E, B, C, d).transpose(0, 1)
-    y = _group_combine(y_exp, slot, keep, t_s, g_s, S)
-    return y, aux
+    y_exp = ye.reshape(-1, B, C, d).transpose(0, 1)
+    y = _group_combine(y_exp, slot, keep, t_s, g_s, S, e0)
+    return (pctx.reduce_from_tp(y) if tp else y), aux
 
 
 __all__ = ["capacity", "moe_apply", "moe_init", "router_topk"]

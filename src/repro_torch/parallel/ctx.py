@@ -1,17 +1,41 @@
-"""Activation-sharding context: the JAX package's ``parallel/ctx.py``.
+"""Activation-sharding context: the JAX package's ``parallel/ctx.py``, and
+the collectives of the port's tensor parallelism.
 
-The trainer and the dry run call ``set_policy(mesh)`` (or enter
-``policy(mesh)``); on one device nothing sets it and ``constrain`` is a
-no-op.  ``constrain`` / ``constrain_acts`` redistribute a DTensor to the
-spec and return a plain tensor unchanged.  The port's sharded step gathers
-each layer's parameters and runs the model on plain tensors (each rank its
-batch shard), so the model's activations are never DTensors and the model
-calls neither function (the JAX package's calls in ``models/*`` are
-hints to GSPMD; see ``repro_torch.models.model``).
+The trainer, the dry run and a sharded prefill call ``set_policy(mesh)``
+(or enter ``policy(mesh)``); on one device nothing sets it.  ``constrain``
+/ ``constrain_acts`` redistribute a DTensor to the spec and return a plain
+tensor unchanged.  The model computes on plain tensors, so it calls
+neither: its layer-boundary activations stay replicated over "model" (the
+JAX package's ``act_shard`` "seq" / "dmodel" calls are hints to GSPMD; see
+``repro_torch.models.model``).  What the model does call:
+  - ``batch_mean``: a statistic over the whole batch, all-reduced over the
+    batch ranks with autograd (the MoE router's);
+  - the "model" axis's group, for Megatron-style column / row pairs:
+    ``tp_size`` / ``tp_rank``; ``copy_to_tp`` (identity forward, all-reduce
+    backward: where a replicated activation enters a rank's shard of the
+    compute); ``reduce_from_tp`` (all-reduce forward, identity backward:
+    where a row-parallel product's partial sums leave it);
+    ``reduce_tp`` (both: a partial product that feeds sharded compute
+    again); ``max_tp`` (no gradient); ``gather_tp`` (the ranks' shards
+    concatenated, no gradient: a prefill's logits and caches); and
+    ``exchange`` (an all-to-all of column ranges whose backward is the
+    reverse all-to-all: whole heads out of column shards, Mamba's x and z
+    channel blocks paired).
+Under ``dp_all`` (fsdp_only) and on a 1-wide "model" axis there is no TP
+group (``tp_size() == 1``) and each of these is the identity.  Sums run in
+f32 and are rounded once to the input's dtype, as one GEMM's f32
+accumulator rounds the whole product; an exchange moves bf16 as its
+bytes.  Every collective is a ``torch.distributed`` call (a c10d op), which
+gloo also runs on CUDA tensors (two ranks sharing one card in
+``chip_smoke.py``); the dry run's fake group records each one.
 """
 from __future__ import annotations
 
 from contextlib import contextmanager
+from functools import lru_cache
+
+import torch
+import torch.distributed as dist
 
 from repro_torch.parallel.sharding import P, TP, to_placements, view
 
@@ -87,7 +111,6 @@ def constrain_acts(x, mode: str):
 def _dp_group():
     """The process group of the batch axes (cached in the policy)."""
     if "group" not in _POLICY:
-        import torch.distributed as dist
         from torch._subclasses.fake_tensor import unset_fake_temporarily
         dp = _POLICY["dp"]
         names = dp if isinstance(dp, tuple) else (dp,)
@@ -109,7 +132,6 @@ def batch_mean(x):
     the same ranks).  ``x`` itself with no policy or one batch rank."""
     if _POLICY is None or getattr(_POLICY["mesh"], "ndim", None) is None:
         return x
-    import torch.distributed as dist
     from torch.distributed.nn.functional import all_reduce
 
     group = _dp_group()
@@ -119,5 +141,203 @@ def batch_mean(x):
     return all_reduce(x, group=group) / n
 
 
-__all__ = ["active", "batch_mean", "constrain", "constrain_acts", "dp_all",
-           "policy", "set_policy"]
+# ------------------------------------------- the "model" axis (TP) ----
+def _tp_group():
+    """The process group of the "model" axis, or None: no policy, a policy
+    of ``dp_all``, a mesh without "model" or a 1-wide one."""
+    if _POLICY is None or _POLICY["dp_all"]:
+        return None
+    if "tp_group" not in _POLICY:
+        mesh = _POLICY["mesh"]
+        names = view(mesh).axis_names
+        group = None
+        if TP in names and view(mesh).shape[TP] > 1 \
+                and hasattr(mesh, "get_group"):
+            group = mesh.get_group(TP)
+        _POLICY["tp_group"] = group
+    return _POLICY["tp_group"]
+
+
+def tp_size() -> int:
+    """Ranks on the "model" axis computing a shard each (1: no TP)."""
+    group = _tp_group()
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def tp_rank() -> int:
+    group = _tp_group()
+    return 0 if group is None else dist.get_rank(group)
+
+
+def _sum(x):
+    """``x`` summed over the TP ranks: an f32 all-reduce, rounded once to
+    ``x``'s dtype."""
+    t = x.float() if x.dtype != torch.float32 else x.clone()
+    dist.all_reduce(t, group=_tp_group())
+    return t.to(x.dtype)
+
+
+class _CopyToTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(g)
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return _sum(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+class _ReduceTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return _sum(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(g)
+
+
+class _Exchange(torch.autograd.Function):
+    """The all-to-all of :func:`exchange` (``plan``: this rank's source
+    columns in send order, rows sent to and received from each rank);
+    backward the reverse all-to-all, each source column's gradients
+    summed."""
+
+    @staticmethod
+    def forward(ctx, x, plan):
+        ctx.plan, ctx.shape = plan, x.shape
+        idx, send, recv = plan
+        rows = x.reshape(-1, x.shape[-1]).t()               # (cols, N)
+        out = _all_to_all(rows.index_select(0, idx), recv, send)
+        return out.t().reshape(*x.shape[:-1], out.shape[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, send, recv = ctx.plan
+        back = _all_to_all(g.reshape(-1, g.shape[-1]).t(), send, recv)
+        dx = back.new_zeros((ctx.shape[-1], back.shape[1]))
+        dx.index_add_(0, idx, back)
+        return dx.t().reshape(ctx.shape), None
+
+
+def copy_to_tp(x):
+    """Identity forward; the gradient all-reduced over the TP ranks."""
+    return x if tp_size() == 1 else _CopyToTP.apply(x)
+
+
+def reduce_from_tp(x):
+    """The TP ranks' partial sums added (f32); identity gradient."""
+    return x if tp_size() == 1 else _ReduceFromTP.apply(x)
+
+
+def reduce_tp(x):
+    """The TP ranks' partial sums added, and so is the gradient."""
+    return x if tp_size() == 1 else _ReduceTP.apply(x)
+
+
+def max_tp(x):
+    """The elementwise max over the TP ranks (no gradient)."""
+    if tp_size() == 1:
+        return x
+    t = x.detach().clone()
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=_tp_group())
+    return t
+
+
+def _words(x):
+    """``x`` (contiguous) as the words all_to_all / all_gather move bit for
+    bit: a 16-bit float as bytes (gloo moves no int16), the last dim
+    doubled (through the flat view: a last dim of one may carry any
+    stride)."""
+    if x.element_size() != 2:
+        return x
+    return x.reshape(-1).view(torch.uint8).view(*x.shape[:-1],
+                                                 2 * x.shape[-1])
+
+
+def _all_to_all(rows, out_splits, in_splits):
+    """``rows`` (sum(in_splits), N) sent in blocks of ``in_splits`` rows to
+    the TP ranks in order; returns the (sum(out_splits), N) received."""
+    rows = rows.contiguous()
+    out = rows.new_empty((sum(out_splits), rows.shape[1]))
+    dist.all_to_all_single(_words(out), _words(rows), list(out_splits),
+                           list(in_splits), group=_tp_group())
+    return out
+
+
+def gather_tp(x, dim: int):
+    """The TP ranks' ``x`` concatenated along ``dim``, in rank order (no
+    gradient)."""
+    n = tp_size()
+    if n == 1:
+        return x
+    src = x.detach().movedim(dim, 0).contiguous()
+    out = src.new_empty((n * src.shape[0], *src.shape[1:]))
+    dist.all_gather_into_tensor(_words(out), _words(src), group=_tp_group())
+    return out.movedim(0, dim).contiguous() if dim else out
+
+
+def shards(width: int, n: int) -> list:
+    """The (lo, hi) columns each of ``n`` ranks holds of a ``width``-column
+    dim split contiguously and evenly (a rule table's ``Shard``)."""
+    w = width // n
+    return [(s * w, (s + 1) * w) for s in range(n)]
+
+
+@lru_cache(maxsize=256)
+def exchange_plan(have: tuple, want: tuple, rank: int):
+    """The all-to-all that gives each TP rank ``r`` the columns of
+    ``want[r]`` (ascending, disjoint (lo, hi) ranges) from the ranks'
+    columns ``have[s]`` (one (lo, hi) range a rank, disjoint): (this
+    rank's source columns in send order, rows sent to each rank, rows
+    received from each), or None where every rank wants exactly what it
+    has."""
+    n = len(have)
+    if all(want[r] == (have[r],) for r in range(n)):
+        return None
+
+    def pieces(s, r):
+        lo, hi = have[s]
+        return [(max(a, lo), min(b, hi)) for a, b in want[r]
+                if min(b, hi) > max(a, lo)]
+    idx = [c - have[rank][0] for r in range(n)
+           for a, b in pieces(rank, r) for c in range(a, b)]
+    send = [sum(b - a for a, b in pieces(rank, r)) for r in range(n)]
+    recv = [sum(b - a for a, b in pieces(s, rank)) for s in range(n)]
+    return tuple(idx), send, recv
+
+
+def exchange(x, have: list, want: list):
+    """``x`` (..., c): the columns ``have[tp_rank()]`` of the last dim of a
+    tensor each TP rank holds a range of (``have[s]`` for rank s).
+    Returns (..., the columns of ``want[tp_rank()]`` in order), each rank's
+    ranges as :func:`exchange_plan` takes them, in one all-to-all (a column
+    wanted by several ranks is sent to each, and its gradient is their
+    sum); ``x`` itself where every rank wants what it has."""
+    n = tp_size()
+    if n == 1:
+        return x
+    have = tuple(tuple(r) for r in have)
+    want = tuple(tuple(tuple(r) for r in ranges) for ranges in want)
+    plan = exchange_plan(have, want, tp_rank())
+    if plan is None:
+        return x
+    idx, send, recv = plan
+    idx = torch.tensor(idx, dtype=torch.long, device=x.device)
+    return _Exchange.apply(x, (idx, send, recv))
+
+
+__all__ = ["active", "batch_mean", "constrain", "constrain_acts",
+           "copy_to_tp", "dp_all", "exchange", "exchange_plan", "gather_tp",
+           "max_tp", "policy", "reduce_from_tp", "reduce_tp", "set_policy",
+           "shards", "tp_rank", "tp_size"]

@@ -69,6 +69,17 @@ def data_axes(mesh) -> tuple[str, ...]:
     return tuple(a for a in view(mesh).axis_names if a != TP)
 
 
+def batch_ranks(mesh, all_axes: bool = False) -> int:
+    """The ranks a batch is split over: the data axes' (every axis's with
+    ``all_axes``, fsdp_only).  A gradient is the sum of these ranks'
+    gradients of their losses scaled by ``1 / batch_ranks``: with tensor
+    parallelism the "model" ranks compute each shard once, and a
+    replicated leaf's gradient alike on every one of them."""
+    mesh = view(mesh)
+    axes = mesh.axis_names if all_axes else data_axes(mesh)
+    return int(np.prod([mesh.shape[a] for a in axes]))
+
+
 def fit_spec(spec, shape, mesh) -> P:
     """Drop axis assignments that do not divide the dim evenly."""
     mesh = view(mesh)
@@ -389,6 +400,39 @@ def gather(tree):
     return _map_with_path(full, tree)
 
 
+def gather_local(tree):
+    """(``tree`` with every DTensor leaf gathered over the batch axes alone,
+    the paths of the leaves it left split over "model").  A leaf comes back
+    as this rank's "model" shard as a plain tensor (the whole leaf where it
+    is replicated over "model"); the paths are read from the placements.
+    Under autograd its gradient lands in the leaf's own placements: a
+    partial sum over the batch axes (a reduce-scatter or an all-reduce
+    there) and, on "model", the rank's own shard (or the gradient every
+    "model" rank computes alike, for a replicated leaf).  The
+    tensor-parallel model's gather; a tree without DTensors comes back as
+    it is, with no split path."""
+    DT = _dtensor()
+    split: set = set()
+    if not any(isinstance(x, DT) for x in _leaves(tree)):
+        return tree, frozenset()
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    def one(path, x):
+        if not isinstance(x, DT):
+            return x
+        mesh = x.device_mesh
+        names = mesh.mesh_dim_names
+        keep = [pl if n == TP else Replicate()
+                for n, pl in zip(names, x.placements)]
+        grad = [pl if n == TP else Partial()
+                for n, pl in zip(names, x.placements)]
+        if any(n == TP and isinstance(pl, Shard) and mesh.size(i) > 1
+               for i, (n, pl) in enumerate(zip(names, x.placements))):
+            split.add(path)
+        return x.redistribute(mesh, keep).to_local(grad_placements=grad)
+    return _map_with_path(one, tree), frozenset(split)
+
+
 def all_sum(t, tree):
     """``t`` summed over every rank when ``tree`` holds DTensors (one
     all-reduce, in place); ``t`` itself otherwise.  The meshes span the
@@ -399,7 +443,7 @@ def all_sum(t, tree):
     return t
 
 
-__all__ = ["MeshView", "P", "TP", "all_sum", "batch_specs", "cache_specs",
-           "data_axes", "distribute", "fit_spec", "gather", "is_dtensor",
-           "like", "local", "param_specs", "place", "replicas", "to_placements",
-           "to_shardings", "view"]
+__all__ = ["MeshView", "P", "TP", "all_sum", "batch_ranks", "batch_specs",
+           "cache_specs", "data_axes", "distribute", "fit_spec", "gather",
+           "gather_local", "is_dtensor", "like", "local", "param_specs",
+           "place", "replicas", "to_placements", "to_shardings", "view"]

@@ -92,13 +92,19 @@ def test_recorder_counts_the_operands_dtensor_sends(fake_group):
 @pytest.mark.parametrize("arch,shape", [
     ("yi-6b", "decode_32k"),            # dense serve, fsdp_only arch
     ("jamba-v0.1-52b", "train_4k"),     # hybrid + MoE + EP train
+    ("qwen2.5-32b", "train_4k"),        # tensor-parallel dense train
 ])
 def test_small_mesh_cell_traces(arch, shape, tmp_path, monkeypatch,
                                 fake_group):
     """``run_cell`` on a 4 x 2 fake mesh with tiny configs, batch 8
     (``tests/test_dryrun_small.py``'s cells) and 64 tokens (its 256 at a
     quarter: the plain scan's backward recompute is a Python loop over the
-    tokens, traced op by op)."""
+    tokens, traced op by op).  Tiny qwen2.5-32b's step is also traced on
+    1 x 1: on 4 x 2 rank 0 holds a quarter of the rows (2 of 8) and, on 2
+    "model" ranks, computes half of every counted product (projections,
+    attention, the vocab head), so its FLOP are an eighth of the 1 x 1
+    trace's (plus 1 %), and each layer of each microbatch adds at least
+    the two column / row pairs' all-reduces (attention, MLP)."""
     cfg = configs.get_tiny_config(arch)
     orig = configs.get_config
     monkeypatch.setattr(configs, "get_config",
@@ -118,6 +124,12 @@ def test_small_mesh_cell_traces(arch, shape, tmp_path, monkeypatch,
         assert coll["counts"]["reduce-scatter"] > 0
     assert json.loads((tmp_path / f"{arch}__{shape}__4x2.json").read_text()
                       )["cost"]["flops"] == rec["cost"]["flops"]
+    if arch == "qwen2.5-32b":
+        assert coll["counts"]["all-reduce"] >= \
+            4 * cfg.n_layers * rec["microbatches"]
+        one = DR.run_cell(arch, shape, "1x1", out_dir=tmp_path,
+                          verbose=False)
+        assert rec["cost"]["flops"] <= one["cost"]["flops"] / 8 * 1.01
 
 
 def jax_bytes_per_device(tree, specs, mesh) -> int:
@@ -155,7 +167,7 @@ def test_full_size_argument_bytes_match_the_jax_rule_table(fake_group):
     mesh = DR.make_mesh_by_name("single")
     cell = ST.input_specs(arch, shape)
     with cell.mode:
-        args, _ = DR._placed(cell, mesh, 256)
+        args, _ = DR._placed(cell, mesh)
         got = DR._local_bytes(args)
     assert got == want
 

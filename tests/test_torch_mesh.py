@@ -12,9 +12,15 @@ are red here, so none is copied from them):
     with ``fsdp_only``, tiny jamba with the FSDP x TP rules and
     ``moe_ep``), without and with int8 compression, equals the one-process
     Trainer's step: the loss within 1e-5 relative, the params within 1e-5
-    (at the default lr 3e-4; the first Adam step is about g / (|g| + eps),
-    so an element whose gradient lies within a few eps of zero moves by up
-    to lr on a last-ulp change of the reduction order);
+    (at the default lr 3e-4 and Adam eps 1e-6: the first Adam step is
+    about g / (|g| + eps), so at the default eps 1e-8 an element whose
+    gradient lies within a few eps of zero moves by up to lr on a last-ulp
+    change of the reduction order, which tiny Jamba's tensor-parallel sums
+    make; at 1e-6 a gradient difference moves the step by at most lr / eps
+    = 300 times itself), and the first moment (0.1 of the clipped
+    gradient) within 1e-5 of each leaf's largest without compression (with
+    int8 a last-ulp change of a rank's partial may flip its rounding by one
+    step of 1/127 of the row's largest, which the params hold);
   - the one-process step of granite and jamba equals the JAX package's
     jitted ``make_train_step`` within the train gates of
     ``tests/test_torch_train.py`` (yi-6b's is held there), plus, per
@@ -33,6 +39,7 @@ import json
 import os
 import subprocess
 import sys
+from functools import lru_cache
 from pathlib import Path
 
 import jax
@@ -64,6 +71,7 @@ STEP_CASES = [("yi-6b", 8), ("granite-moe-1b-a400m", 8),
               ("jamba-v0.1-52b", 16)]
 COMPRESS = ("none", "int8")
 TOPK_FRAC = 0.1
+EPS = 1e-6
 
 WORKER = r'''
 import json, os, shutil, sys
@@ -85,11 +93,12 @@ if job == "steps":
     for arch, batch in {cases!r}:
         for compress in {compress!r}:
             tr = Trainer(get_cfg("tiny:" + arch), mesh=mesh,
-                         compress=compress, seed=0)
+                         compress=compress, seed=0, eps={eps})
             losses = tr.run(1, batch, {seq}, seed=0, **quiet)
             full = [x.full_tensor() for x in leaves(tr.params)]
+            m = [x.full_tensor() for x in leaves(tr.opt.m)]
             if rank == 0:
-                torch.save({{"losses": losses, "params": full}},
+                torch.save({{"losses": losses, "params": full, "m": m}},
                            os.path.join(out, f"{{arch}}-{{compress}}.pt"))
 if job == "elastic":
     cfg = get_cfg("tiny:yi-6b")
@@ -134,7 +143,7 @@ def run_job(tmp: Path, job: str, world: int, timeout: int) -> Path:
     script = tmp / f"{job}_worker.py"
     script.write_text(WORKER.format(src=SRC, cases=STEP_CASES,
                                     compress=COMPRESS, seq=SEQ,
-                                    topk=TOPK_FRAC))
+                                    topk=TOPK_FRAC, eps=EPS))
     env = {**os.environ, "PYTHONPATH": SRC, "OMP_NUM_THREADS": "1"}
     procs = [subprocess.Popen(
         [sys.executable, str(script), str(r), str(world),
@@ -164,23 +173,38 @@ def elastic_runs(tmp_path_factory):
     return json.loads((out / "elastic.json").read_text())
 
 
+@lru_cache(maxsize=None)
 def one_process(arch: str, batch: int, compress: str):
     tr = train.Trainer(configs.get_tiny_config(arch), compress=compress,
-                       seed=0, device="cpu")
+                       seed=0, eps=EPS, device="cpu")
     losses = tr.run(1, batch, SEQ, seed=0, log=lambda *a: None)
-    return losses, leaves(tr.params)
+    return losses, leaves(tr.params), leaves(tr.opt.m)
 
 
 @pytest.mark.parametrize("compress", COMPRESS)
 @pytest.mark.parametrize("arch,batch", STEP_CASES)
 def test_sharded_step_matches_one_process(step_runs, arch, batch, compress):
     got = torch.load(step_runs / f"{arch}-{compress}.pt")
-    losses, params = one_process(arch, batch, compress)
+    losses, params, _ = one_process(arch, batch, compress)
     np.testing.assert_allclose(got["losses"], losses, rtol=1e-5)
     assert len(got["params"]) == len(params)
     for a, b in zip(got["params"], params):
         assert a.shape == b.shape and a.dtype == b.dtype
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch,batch", STEP_CASES)
+def test_sharded_grads_match_one_process(step_runs, arch, batch):
+    """The first moment, 0.1 of the clipped gradient, of the sharded step
+    against the one-process step's, leaf by leaf within 1e-5 of its
+    largest."""
+    got = torch.load(step_runs / f"{arch}-none.pt")
+    _, _, m = one_process(arch, batch, "none")
+    assert len(got["m"]) == len(m)
+    for a, b in zip(got["m"], m):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0,
+                                   atol=1e-5 * float(b.abs().max()))
 
 
 @pytest.mark.parametrize("arch,batch", STEP_CASES[1:])

@@ -51,7 +51,7 @@ from repro_torch.optim import adamw
 CPU = "cpu"
 ARCHS = ["yi-6b", "qwen3-8b", "musicgen-medium", "qwen2-vl-2b",
          "granite-moe-1b-a400m", "jamba-v0.1-52b", "rwkv6-3b",
-         "stablelm-12b"]
+         "stablelm-12b", "qwen2.5-32b", "grok-1-314b"]
 _j_vg = {}
 
 
@@ -88,7 +88,10 @@ def test_loss_and_gradients_match_jax(arch, S):
     leaves a ragged last query block; a quarter of the labels are -100.
     Granite trains through the MoE (its aux loss compared), Jamba through
     Mamba, attention, MLP and MoE layers, RWKV-6 through both of its mixes
-    (one scan segment at either S: the tiny configs' chunk is 64)."""
+    (one scan segment at either S: the tiny configs' chunk is 64),
+    qwen2.5-32b through its QKV bias and grok-1 through a MoE without
+    expert parallelism (the configs ``tests/test_torch_tp.py`` shards over
+    "model")."""
     cfg = jconfigs.get_tiny_config(arch)
     jp = JM.init_params(jax.random.PRNGKey(S), cfg)
     b = JM.dummy_batch(cfg, 2, S, key=jax.random.PRNGKey(1))

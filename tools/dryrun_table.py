@@ -4,9 +4,10 @@
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both
     PYTHONPATH=src python -m repro_torch.roofline.analysis --mesh single
     PYTHONPATH=src python -m repro_torch.roofline.analysis --mesh multi
-    PYTHONPATH=src python3 tools/dryrun_table.py
+    PYTHONPATH=src python3 tools/dryrun_table.py [ARCH ...]
 
-One row a cell (every applicable (arch x shape) of ``configs.all_cells``),
+One row a cell (every applicable (arch x shape) of ``configs.all_cells``,
+or of the archs named),
 each value "single / multi" (the 16 x 16 and 2 x 16 x 16 meshes): per
 device the argument and peak GB, the FLOP, the collective GB by kind
 (all-gather / all-reduce / reduce-scatter) from ``experiments/
@@ -56,12 +57,14 @@ def row(arch: str, shape: str) -> str:
         pair(rl, lambda r: f"{r['useful_flops_ratio']:.2f}")]) + " |"
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    archs = sys.argv[1:] if argv is None else argv
     print("| arch | shape | args GB | peak GB | FLOP | collective GB "
           "| compute s | memory s | coll. s | dominant | useful |")
     print("|" + "---|" * 11)
     for arch, shape, _, _ in configs.all_cells():
-        print(row(arch, shape))
+        if not archs or arch in archs:
+            print(row(arch, shape))
     return 0
 
 
