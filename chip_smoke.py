@@ -214,6 +214,31 @@ prints one JSON line per phase:
                  ``moe_gmm`` at f 16,384 and at 8 local experts,
                  ``mamba_ssm`` at 4,096 channels), each kernel against its
                  plain version on the first inputs the pinned run gave it;
+     tp_decode     — qwen2.5-32b (2 layers), jamba-v0.1-52b (8 layers; in
+                 f32 compute for its gate, then in bf16 reported) and
+                 rwkv6-3b (2 layers), bf16 weights: a one-process prefill
+                 of 2 x 1,024 tokens into a cache of 1,032 positions and
+                 8 greedy decode steps (tokens and experts recorded), then
+                 the cache placed by ``steps.shard_cache`` on the two
+                 ranks (half of each KV sequence, of the conv and SSM
+                 channels, of the WKV heads) and the 8 steps on the decode
+                 rule table's weights with the one-process tokens and
+                 experts: each step's logits within 3e-2 of their scale,
+                 the same argmax but near-ties; exact launches per rank
+                 (``moe_gmm`` on 8 local experts, ``mamba_ssm`` on 4,096
+                 channels, ``rwkv6_wkv`` on 20 heads), peak memory beside
+                 the one process's, each kernel against its plain version
+                 on the rank's first inputs;
+     sp_prefill    — yi-6b, granite-moe-1b-a400m and rwkv6-3b (2 layers
+                 each), bf16 weights replicated, 2 x 2,048 tokens with the
+                 sequence over the two ranks: the logits of every rank and
+                 the caches (KV concatenated over the ranks' positions,
+                 the RWKV states) within 3e-2 of their scale of the
+                 one-process prefill; flash launches per rank and layer
+                 (rank 0 one causal, rank 1 one causal and one full over
+                 rank 0's keys), ``rwkv6_wkv`` once a layer on each rank,
+                 each kernel against its plain version on the rank's
+                 first inputs;
      dryrun        — host only: ``python -m repro_torch.launch.dryrun --mesh
                  both`` for qwen3-8b train_4k, jamba-v0.1-52b prefill_32k,
                  grok-1-314b decode_32k and rwkv6-3b long_500k, one
@@ -490,6 +515,30 @@ TP_PREFILL = (("grok-1-314b", 2), ("jamba-v0.1-52b", 8))
 TP_PREFILL_B, TP_PREFILL_S, TP_SEED = 2, 512, 25
 TP_LOGITS_TOL = 3e-2
 TP_TIMEOUT_S = 600
+#: the split serve path on the same two ranks.  tp_decode: each (arch,
+#: layers, compute dtype, gated) of TP_DECODE, bf16 weights (held in f32
+#: for f32 compute), a one-process prefill of TP_DECODE_B x
+#: TP_DECODE_PROMPT tokens into a cache of TP_DECODE_MAX positions, placed
+#: by ``steps.shard_cache`` (each rank half of every KV sequence and of the
+#: scans' state features), then TP_DECODE_STEPS decode steps on the decode
+#: rule table's tensor-parallel weights, on the one-process run's greedy
+#: tokens with its experts pinned: every step's logits within
+#: TP_LOGITS_TOL of their scale, the same argmax but near-ties.  Jamba's
+#: random-weight 8 layers turn the ranks' other bf16 summation order into
+#: 2-3 % of the logits' scale, so its gate runs in f32 compute and its
+#: bf16 run is reported beside it, not gated.  sp_prefill: each (arch, layers) of SP_PREFILL (fsdp_only:
+#: replicated weights), SP_PREFILL_B x SP_PREFILL_S tokens, the sequence
+#: over the two ranks: the logits and the caches gathered within
+#: TP_LOGITS_TOL of their scale of the one-process prefill (the reasons in
+#: PERF.md §6)
+TP_DECODE = (("qwen2.5-32b", 2, "bfloat16", True),
+             ("jamba-v0.1-52b", 8, "float32", True),
+             ("jamba-v0.1-52b", 8, "bfloat16", False),
+             ("rwkv6-3b", 2, "bfloat16", True))
+TP_DECODE_B, TP_DECODE_PROMPT, TP_DECODE_STEPS = 2, 1024, 8
+TP_DECODE_MAX = TP_DECODE_PROMPT + TP_DECODE_STEPS
+SP_PREFILL = (("yi-6b", 2), ("granite-moe-1b-a400m", 2), ("rwkv6-3b", 2))
+SP_PREFILL_B, SP_PREFILL_S = 2, 2048
 #: the dry run's cells on the card's host (both production meshes each,
 #: one subprocess a cell, all at once), and the cell under the roofline
 DRYRUN_CELLS = (("qwen3-8b", "train_4k"), ("jamba-v0.1-52b", "prefill_32k"),
@@ -4114,8 +4163,9 @@ def tp_worker(job: str, rank: int, rdv: str, tmp: str) -> int:
         world_size=int(np.prod(TP_MESH)),
         timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
     mesh = make_mesh(TP_MESH, device="cuda")
-    rec = (tp_train_rank if job == "train" else tp_prefill_rank)(mesh, rank,
-                                                                tmp)
+    rec = {"train": tp_train_rank, "prefill": tp_prefill_rank,
+           "decode": tp_decode_rank, "sp": sp_prefill_rank}[job](mesh, rank,
+                                                                 tmp)
     rec.update(rank=rank, backend=dist.get_backend(),
                mesh="x".join(map(str, TP_MESH)), host_staged_collectives=[])
     (Path(tmp) / f"tp_{job}_rank{rank}.json").write_text(json.dumps(rec))
@@ -4231,12 +4281,13 @@ def tp_prompts(cfg, dev):
 
 
 def tp_routing(record: list, pinned: list | None = None,
-               flips: list | None = None):
+               flips: list | None = None, positions: tuple | None = None):
     """``models.moe.router_topk`` in call order: each call's experts
     appended to ``record``; or, with ``pinned``, call i routed to
-    ``pinned[i]`` with its own probabilities of them as gates (normalised
-    as ``router_topk`` does), and in ``flips`` the tokens whose own top k
-    differ."""
+    ``pinned[i]`` (its ``positions`` (lo, hi) of the sequence, for a rank
+    holding that block) with its own probabilities of them as gates
+    (normalised as ``router_topk`` does), and in ``flips`` the tokens whose
+    own top k differ."""
     import torch
 
     from repro_torch.models import moe as X
@@ -4249,6 +4300,8 @@ def tp_routing(record: list, pinned: list | None = None,
         if pinned is None:
             return gates, idx, aux
         want = pinned[i].to(idx.device)
+        if positions is not None:
+            want = want[:, positions[0]:positions[1]]
         flips.append(int((want != idx).any(-1).sum()))
         probs = torch.softmax(x.float() @ p["router"]["w"].float(), dim=-1)
         g = probs.gather(-1, want)
@@ -4447,6 +4500,503 @@ def tp_prefill_path(dev, tmp: str) -> tuple[dict, dict]:
             "batch": TP_PREFILL_B, "seq": TP_PREFILL_S,
             "tolerance": TP_LOGITS_TOL, "one_card": ones, "ranks": ranks,
             "ranks_wall_s": wall}, {k: v for k, v in launches.items() if v}
+
+
+def split_cfg(arch: str, layers: int, compute: str | None = None):
+    """A split phase's config: full width cut to ``layers``, bf16 weights,
+    the config's compute dtype or ``compute``."""
+    from repro_torch.configs import get_config
+    full = get_config(arch)
+    return full, full.replace(n_layers=layers, param_dtype="bfloat16",
+                              compute_dtype=compute or full.compute_dtype)
+
+
+def split_params(cfg, dev, mesh=None):
+    """``cfg``'s weights drawn in bf16 from TP_SEED, placed by the decode
+    rule table on ``mesh`` when given, and for an f32-compute config held
+    in f32 (the same values), cast a leaf at a time so that the bf16 and
+    f32 copies of the whole model are never both held."""
+    import torch
+
+    from repro_torch.launch import steps
+    from repro_torch.models import init_params
+    from repro_torch.parallel import sharding as SH
+    params = init_params(TP_SEED, cfg, device=dev)
+    if mesh is not None:
+        params = steps.shard_params(params, cfg, mesh, mode="decode")
+        free_device()
+    if cfg.compute_dtype != "float32":
+        return params
+
+    def cast(tree):
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+        for key, x in list(items):
+            if isinstance(x, (dict, list)):
+                cast(x)
+            elif x.is_floating_point() and x.dtype != torch.float32:
+                tree[key] = SH.like(x, SH.local(x).float())
+                del x
+    cast(params)
+    free_device()
+    return params
+
+
+def split_kernels() -> dict:
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.mamba_scan import mamba_ssm_cuda
+    from repro_torch.kernels.moe_gmm import moe_gmm_cuda
+    from repro_torch.kernels.rwkv6_scan import rwkv6_wkv_cuda
+    return {"flash_attention": flash_attention_cuda, "moe_gmm": moe_gmm_cuda,
+            "mamba_ssm": mamba_ssm_cuda, "rwkv6_wkv": rwkv6_wkv_cuda}
+
+
+def capturing(kernels: dict, seen: dict, flash_calls: list) -> list:
+    """Patches of the ops modules' kernel names (for :func:`patched_all`)
+    that keep each kernel's first inputs in ``seen`` (the flash kernel's
+    first causal and first full call apart) and each flash call's
+    ``causal`` flag in ``flash_calls``."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.mamba_scan import ops as scan_ops
+    from repro_torch.kernels.moe_gmm import ops as gmm_ops
+    from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
+
+    def keep(key, args):
+        seen.setdefault(key, tuple(a.detach().clone() if isinstance(
+            a, torch.Tensor) else a for a in args))
+
+    def wrap(name):
+        fn = kernels[name]
+
+        def call(*args):
+            if name == "flash_attention":
+                flash_calls.append(bool(args[3]))
+                keep(f"flash_attention causal={bool(args[3])}", args)
+            else:
+                keep(name, args)
+            return fn(*args)
+        return call
+    return [(fa_ops, {"flash_attention_cuda": wrap("flash_attention")}),
+            (gmm_ops, {"moe_gmm_cuda": wrap("moe_gmm")}),
+            (scan_ops, {"mamba_ssm_cuda": wrap("mamba_ssm")}),
+            (wkv_ops, {"rwkv6_wkv_cuda": wrap("rwkv6_wkv")})]
+
+
+def kernels_vs_plain(kernels: dict, seen: dict, what: str) -> dict:
+    """Each captured kernel call run again on its own inputs, against its
+    plain version (the flash kernel's output and LSE within FA_TOL, the
+    grouped matmul within FA_TOL, the scans within SCAN_TOL / WKV's
+    bound)."""
+    from repro_torch.kernels.flash_attention import attention_ref
+    from repro_torch.kernels.mamba_scan import mamba_ssm_ref
+    from repro_torch.kernels.moe_gmm import moe_gmm_ref
+    from repro_torch.kernels.rwkv6_scan import rwkv6_wkv_ref
+    out = {}
+    for key, args in seen.items():
+        tag = f"{what} {key}"
+        if key.startswith("flash_attention"):
+            q, k, v, causal = args[:4]
+            got, lse = kernels["flash_attention"](q, k, v, causal, True)
+            want, want_lse = attention_ref(q, k, v, causal, True)
+            out[key] = {"q": list(q.shape), "kv": list(k.shape),
+                        "max_abs_err": close(got, want, tag),
+                        "lse_max_abs_err": close(lse, want_lse, tag + " lse",
+                                                 FA_TOL[str(q.dtype)])}
+        elif key == "moe_gmm":
+            x, w = args[:2]
+            out[key] = {"x": list(x.shape), "w": list(w.shape),
+                        "max_abs_err": close(kernels["moe_gmm"](x, w),
+                                             moe_gmm_ref(x, w), tag)}
+        elif key == "mamba_ssm":
+            x, dt, Bm, Cm, A_, D, h0 = args[:7]
+            y, h = kernels["mamba_ssm"](x, dt, Bm, Cm, A_, D,
+                                        None if h0 is None else h0.clone())
+            wy, wh = mamba_ssm_ref(x, dt, Bm, Cm, A_, D, h0)
+            out[key] = {"x": list(x.shape), "h0": h0 is not None,
+                        "max_abs_err": max(close(y, wy, tag + " y", SCAN_TOL),
+                                           close(h, wh, tag + " h",
+                                                 SCAN_TOL))}
+        else:
+            r, k, v, w, u, st = args[:6]
+            y, s = kernels["rwkv6_wkv"](r, k, v, w, u,
+                                        None if st is None else st.clone())
+            wy, ws = rwkv6_wkv_ref(r, k, v, w, u, st)
+            out[key] = {"r": list(r.shape), "state0": st is not None,
+                        "max_abs_err": wkv_close(y, s, wy, ws, tag)}
+    return out
+
+
+def scaled_err(got, want) -> tuple[float, float]:
+    """(max |got - want|, max |want|), in f32."""
+    a, b = got.float(), want.float()
+    return float((a - b).abs().max()), float(b.abs().max())
+
+
+def same_argmax(got, want, what: str) -> int:
+    """Rows whose argmax differs; raises unless each is a near-tie (the
+    reference's gap within TP_LOGITS_TOL of its scale)."""
+    import torch
+    a, b = got.float().argmax(-1), want.float().argmax(-1)
+    rows = torch.arange(a.shape[0], device=a.device)
+    w = want.float()
+    gaps = (w[rows, b] - w[rows, a])[a != b]
+    scale = float(w.abs().max())
+    expect(bool((gaps <= TP_LOGITS_TOL * scale).all()),
+           f"{what}: argmax differs beyond a near-tie: reference gaps "
+           f"{gaps.tolist()} of scale {scale}")
+    return int((a != b).sum())
+
+
+def tp_decode_rank(mesh, rank: int, tmp: str) -> dict:
+    """Per config of TP_DECODE: the decode rule table's placement of the
+    weights (one rank at a time draws the whole model), the one-process
+    prefill's cache placed by ``shard_cache`` (this rank's half of each KV
+    sequence and of the scans' state features), TP_DECODE_STEPS decode
+    steps on the one-process run's tokens with the routing pinned to its
+    experts; each step's logits saved for the parent's gate, the kernels'
+    launches and this rank's peak memory, and each kernel against its
+    plain version on the first inputs the steps gave it."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import steps
+    from repro_torch.models import model as MD
+    from repro_torch.models import moe as X
+    from repro_torch.parallel import ctx as pctx
+    from repro_torch.parallel import sharding as SH
+    dev = torch.device("cuda", 0)
+    kernels = split_kernels()
+    out: dict = {"configs": []}
+    for arch, layers, compute, _ in TP_DECODE:
+        _, cfg = split_cfg(arch, layers, compute)
+        tag = f"{arch}_{compute}"
+        ref = torch.load(Path(tmp) / f"tp_decode_{tag}.pt")
+        for r in range(int(np.prod(TP_MESH))):
+            if r == rank:
+                params = split_params(cfg, dev, mesh)
+            dist.barrier()
+        cache = steps.shard_cache([{k: v.to(dev) for k, v in lc.items()}
+                                   for lc in ref["cache"]], cfg, mesh,
+                                  TP_DECODE_B)
+        free_device()
+        seen: dict = {}
+        flash_calls: list = []
+        for k in kernels.values():
+            k.launches = 0
+            k.shapes.clear()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, flips = [], []
+        with patched(X, router_topk=tp_routing([], ref["experts"], flips)), \
+                patched_all(capturing(kernels, seen, flash_calls)), \
+                torch.inference_mode(), pctx.policy(mesh):
+            for t in range(TP_DECODE_STEPS):
+                b = {"tokens": ref["tokens"][t].to(dev)[:, None]}
+                b = SH.distribute(b, SH.batch_specs(b, mesh), mesh)
+                lg, cache = MD.apply_decode(params, cfg, cache, b,
+                                            TP_DECODE_PROMPT + t)
+                logits.append(lg.float().cpu())
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: v.launches for k, v in kernels.items()}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        torch.save(logits, Path(tmp) / f"tp_decode_{tag}_rank{rank}.pt")
+        kv = [lc["k"] for lc in cache if "k" in lc]
+        rec = {"arch": arch, "compute": compute, "layers": cfg.n_layers,
+               "launches": launches,
+               "seconds": seconds, "pinned_flips": sum(flips),
+               "flash_launches": len(flash_calls),
+               "max_memory_gb": peak,
+               "kv_positions": [list(SH.local(x).shape) for x in kv[:1]],
+               "shapes": {k: [list(s) + [n] for s, n in v.shapes.items()]
+                          for k, v in kernels.items() if v.shapes},
+               "kernels_vs_plain": kernels_vs_plain(
+                   kernels, seen, f"tp_decode {tag} rank {rank}")}
+        out["configs"].append(rec)
+        del params, cache, seen
+        free_device()
+    return out
+
+
+def tp_decode_path(dev, tmp: str) -> tuple[dict, dict]:
+    """The ``tp_decode`` phase: each config's one-process prefill of
+    TP_DECODE_B x TP_DECODE_PROMPT tokens into a cache of TP_DECODE_MAX
+    positions (kept in ``tmp`` before any decode writes it), then
+    TP_DECODE_STEPS greedy decode steps (tokens, logits, experts and peak
+    memory kept), then the two ranks from that cache; every step's logits
+    within TP_LOGITS_TOL of their scale, the same argmax but near-ties.
+    Returns the record and the ranks' launches (summed)."""
+    import torch
+
+    from repro_torch.models import model as MD
+    from repro_torch.models import moe as X
+    ones, logits_one = [], {}
+    for arch, layers, compute, _ in TP_DECODE:
+        full, cfg = split_cfg(arch, layers, compute)
+        tag = f"{arch}_{compute}"
+        params = split_params(cfg, dev)
+        rng = np.random.default_rng(TP_SEED)
+        prompt = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (TP_DECODE_B, TP_DECODE_PROMPT),
+            dtype=np.int32)).to(dev)
+        with torch.inference_mode():
+            lg, cache = MD.apply_prefill(params, cfg, {"tokens": prompt},
+                                         max_len=TP_DECODE_MAX)
+        kept = [{k: v.cpu() for k, v in lc.items()} for lc in cache]
+        experts: list = []
+        tokens, logits = [], []
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with patched(X, router_topk=tp_routing(experts)), \
+                torch.inference_mode():
+            for t in range(TP_DECODE_STEPS):
+                tok = lg.argmax(-1).to(torch.int32)
+                tokens.append(tok.cpu())
+                lg, cache = MD.apply_decode(params, cfg, cache,
+                                            {"tokens": tok[:, None]},
+                                            TP_DECODE_PROMPT + t)
+                logits.append(lg.float().cpu())
+        torch.cuda.synchronize()
+        ones.append({"arch": arch, "compute": compute,
+                     "seconds": time.perf_counter() - t0,
+                     "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "reduced": {"n_layers": f"{full.n_layers} -> {layers}",
+                                 "param_dtype": "float32 -> bfloat16"}})
+        logits_one[tag] = logits
+        torch.save({"cache": kept, "tokens": tokens,
+                    "experts": [e.cpu() for e in experts]},
+                   Path(tmp) / f"tp_decode_{tag}.pt")
+        del params, cache, kept, lg, experts
+        free_device()
+    t0 = time.perf_counter()
+    ranks = tp_spawn("decode", tmp)
+    wall = time.perf_counter() - t0
+    launches: dict = {}
+    gates = []
+    for i, (arch, layers, compute, gated) in enumerate(TP_DECODE):
+        _, cfg = split_cfg(arch, layers, compute)
+        tag = f"{arch}_{compute}"
+        k = kinds_of(cfg)
+        per_run = {"flash_attention": 0,
+                   "moe_gmm": 3 * k.get("moe", 0) * TP_DECODE_STEPS,
+                   "mamba_ssm": k.get("mamba", 0) * TP_DECODE_STEPS,
+                   "rwkv6_wkv": k.get("rwkv", 0) * TP_DECODE_STEPS}
+        errs, differs = [], 0
+        for r in ranks:
+            rec = r["configs"][i]
+            for name, n in rec["launches"].items():
+                launches[name] = launches.get(name, 0) + n
+            got = torch.load(Path(tmp) / f"tp_decode_{tag}_rank"
+                             f"{r['rank']}.pt")
+            errs.append([scaled_err(a, b) for a, b in zip(
+                got, logits_one[tag], strict=True)])
+            differs += sum(int((a.argmax(-1) != b.argmax(-1)).sum())
+                           for a, b in zip(got, logits_one[tag]))
+            if gated:
+                for t, (a, b) in enumerate(zip(got, logits_one[tag])):
+                    same_argmax(a, b, f"tp_decode {tag} rank {r['rank']} "
+                                f"step {t}")
+        rel = [[e / s for e, s in steps_] for steps_ in errs]
+        gates.append({"arch": arch, "compute": compute, "gated": gated,
+                      "rel_err_by_rank_and_step": rel,
+                      "max_rel_err": max(max(x) for x in rel),
+                      "argmax_differs": differs})
+        for r in ranks:
+            rec = r["configs"][i]
+            expect(rec["launches"] == per_run, f"tp_decode {tag} rank "
+                   f"{r['rank']}: launches {rec['launches']}, expected "
+                   f"{per_run}")
+            for t, x in enumerate(rel[r["rank"]] if gated else ()):
+                expect(x <= TP_LOGITS_TOL, f"tp_decode {tag} rank "
+                       f"{r['rank']} step {t}: logits differ by {x:.4g} of "
+                       f"their scale (steps: {rel[r['rank']]})")
+    return {"phase": "tp_decode", "mesh": "x".join(map(str, TP_MESH)),
+            "backend": ranks[0]["backend"],
+            "host_staged_collectives": ranks[0]["host_staged_collectives"],
+            "batch": TP_DECODE_B, "prompt": TP_DECODE_PROMPT,
+            "max_len": TP_DECODE_MAX, "steps": TP_DECODE_STEPS,
+            "tolerance": TP_LOGITS_TOL, "gates": gates, "one_card": ones,
+            "ranks": ranks, "ranks_wall_s": wall}, {
+        k: v for k, v in launches.items() if v}
+
+
+def sp_prefill_rank(mesh, rank: int, tmp: str) -> dict:
+    """Per config of SP_PREFILL: the fsdp_only prefill's placement (every
+    weight replicated), the batch placed with its sequence over the two
+    ranks (``batch_specs(seq_over_model=True)``), the prefill with the
+    routing pinned to the one-process run's experts; the logits and this
+    rank's cache saved for the parent's gates, the flash launches by
+    ``causal``, every kernel's launches, this rank's peak memory, and each
+    kernel against its plain version on the first inputs it was given."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import steps
+    from repro_torch.models import init_params
+    from repro_torch.models import model as MD
+    from repro_torch.models import moe as X
+    from repro_torch.parallel import ctx as pctx
+    from repro_torch.parallel import sharding as SH
+    dev = torch.device("cuda", 0)
+    kernels = split_kernels()
+    out: dict = {"configs": []}
+    for arch, layers in SP_PREFILL:
+        _, cfg = split_cfg(arch, layers)
+        ref = torch.load(Path(tmp) / f"sp_prefill_{arch}.pt")
+        for r in range(int(np.prod(TP_MESH))):
+            if r == rank:
+                params = steps.shard_params(init_params(TP_SEED, cfg,
+                                                        device=dev),
+                                            cfg, mesh, mode="prefill")
+                free_device()
+            dist.barrier()
+        b = {"tokens": sp_prompts(cfg, dev)}
+        b = SH.distribute(b, SH.batch_specs(b, mesh, seq_over_model=True),
+                          mesh)
+        seen: dict = {}
+        flash_calls: list = []
+        flips: list = []
+        for k in kernels.values():
+            k.launches = 0
+            k.shapes.clear()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        split = SH.seq_split(b["tokens"])
+        with patched(X, router_topk=tp_routing([], ref["experts"], flips,
+                                               (split.lo, split.hi))), \
+                patched_all(capturing(kernels, seen, flash_calls)), \
+                torch.inference_mode(), pctx.policy(mesh):
+            logits, cache = MD.apply_prefill(params, cfg, b)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: v.launches for k, v in kernels.items()}
+        torch.save({"logits": logits.float().cpu(), "cache": [
+            {k: v.cpu() for k, v in lc.items()} for lc in cache]},
+            Path(tmp) / f"sp_prefill_{arch}_rank{rank}.pt")
+        rec = {"arch": arch, "layers": cfg.n_layers, "launches": launches,
+               "seconds": seconds, "pinned_flips": sum(flips),
+               "flash_causal": flash_calls.count(True),
+               "flash_full": flash_calls.count(False),
+               "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "positions": [split.lo, split.hi],
+               "shapes": {k: [list(s) + [n] for s, n in v.shapes.items()]
+                          for k, v in kernels.items() if v.shapes},
+               "kernels_vs_plain": kernels_vs_plain(
+                   kernels, seen, f"sp_prefill {arch} rank {rank}")}
+        out["configs"].append(rec)
+        del params, cache, seen
+        free_device()
+    return out
+
+
+def sp_prompts(cfg, dev):
+    import torch
+    rng = np.random.default_rng(TP_SEED)
+    return torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (SP_PREFILL_B, SP_PREFILL_S),
+        dtype=np.int32)).to(dev)
+
+
+def sp_prefill_path(dev, tmp: str) -> tuple[dict, dict]:
+    """The ``sp_prefill`` phase: each config's one-process prefill (its
+    logits, cache and experts kept in ``tmp``), then the two ranks, each on
+    its half of the sequence; the next tokens (the last logits' argmax,
+    on every rank) the same but near-ties, and the ranks' caches, KV
+    concatenated over the positions, within TP_LOGITS_TOL of their scale
+    of the one-process cache.  Launches per rank: the flash kernel once
+    causal a layer on each rank and once more full on rank 1 (its keys of
+    rank 0's block); the WKV scan once a layer on each rank (with two
+    ranks the first rank's zero-start scan is the sequence's and the last
+    rank scans once from its carried start; a middle rank, from three
+    ranks on, scans twice).  Returns the record and the ranks' launches
+    (summed)."""
+    import torch
+
+    from repro_torch.models import init_params
+    from repro_torch.models import model as MD
+    from repro_torch.models import moe as X
+    ones, want = [], {}
+    for arch, layers in SP_PREFILL:
+        full, cfg = split_cfg(arch, layers)
+        params = init_params(TP_SEED, cfg, device=dev)
+        experts: list = []
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with patched(X, router_topk=tp_routing(experts)), \
+                torch.inference_mode():
+            logits, cache = MD.apply_prefill(
+                params, cfg, {"tokens": sp_prompts(cfg, dev)})
+        torch.cuda.synchronize()
+        ones.append({"arch": arch, "seconds": time.perf_counter() - t0,
+                     "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "reduced": {"n_layers": f"{full.n_layers} -> {layers}",
+                                 "param_dtype": "float32 -> bfloat16"}})
+        want[arch] = (logits.float().cpu(),
+                      [{k: v.cpu() for k, v in lc.items()} for lc in cache])
+        torch.save({"experts": [e.cpu() for e in experts]},
+                   Path(tmp) / f"sp_prefill_{arch}.pt")
+        del params, cache, logits, experts
+        free_device()
+    t0 = time.perf_counter()
+    ranks = tp_spawn("sp", tmp)
+    wall = time.perf_counter() - t0
+    launches: dict = {}
+    gates = []
+    n = int(np.prod(TP_MESH))
+    for i, (arch, layers) in enumerate(SP_PREFILL):
+        _, cfg = split_cfg(arch, layers)
+        k = kinds_of(cfg)
+        got = [torch.load(Path(tmp) / f"sp_prefill_{arch}_rank{r}.pt")
+               for r in range(n)]
+        logits, cache = want[arch]
+        for r in ranks:
+            rec = r["configs"][i]
+            expect(rec["flash_causal"] == k.get("attn", 0)
+                   and rec["flash_full"] == k.get("attn", 0) * r["rank"],
+                   f"sp_prefill {arch} rank {r['rank']}: flash "
+                   f"{rec['flash_causal']} causal, {rec['flash_full']} full")
+            per_run = {"flash_attention": k.get("attn", 0) * (1 + r["rank"]),
+                       "moe_gmm": 3 * k.get("moe", 0), "mamba_ssm": 0,
+                       "rwkv6_wkv": k.get("rwkv", 0)}
+            expect(rec["launches"] == per_run, f"sp_prefill {arch} rank "
+                   f"{r['rank']}: launches {rec['launches']}, expected "
+                   f"{per_run}")
+            for name, c in rec["launches"].items():
+                launches[name] = launches.get(name, 0) + c
+        logit_err = 0.0
+        for r in range(n):
+            err, scale = scaled_err(got[r]["logits"], logits)
+            expect(err <= TP_LOGITS_TOL * scale, f"sp_prefill {arch} rank "
+                   f"{r}: logits differ by {err} of scale {scale}")
+            logit_err = max(logit_err, err / scale)
+        differs = same_argmax(got[-1]["logits"], logits, f"sp_prefill {arch}")
+        worst = {}
+        for j, lc in enumerate(cache):
+            for key, w in lc.items():
+                parts = [g["cache"][j][key] for g in got]
+                a = torch.cat(parts, 1) if key in ("k", "v") else parts[-1]
+                expect(all(torch.equal(p, parts[-1]) for p in parts)
+                       or key in ("k", "v"),
+                       f"sp_prefill {arch} layer {j} {key}: the ranks' "
+                       "states differ")
+                err, scale = scaled_err(a, w)
+                expect(err <= TP_LOGITS_TOL * scale, f"sp_prefill {arch} "
+                       f"layer {j} {key}: differs by {err} of scale {scale}")
+                worst[key] = max(worst.get(key, 0.0), err / scale)
+        gates.append({"arch": arch, "logits_rel_err": logit_err,
+                      "argmax_differs": differs, "cache_rel_err": worst})
+    return {"phase": "sp_prefill", "mesh": "x".join(map(str, TP_MESH)),
+            "backend": ranks[0]["backend"],
+            "host_staged_collectives": ranks[0]["host_staged_collectives"],
+            "batch": SP_PREFILL_B, "seq": SP_PREFILL_S,
+            "tolerance": TP_LOGITS_TOL, "gates": gates, "one_card": ones,
+            "ranks": ranks, "ranks_wall_s": wall}, {
+        k: v for k, v in launches.items() if v}
 
 
 def dryrun_path() -> dict:
@@ -4692,7 +5242,9 @@ def main() -> int:
     free_device()
     with tempfile.TemporaryDirectory() as tmp:
         for phase, path in (("tp_train", tp_train_path),
-                            ("tp_prefill", tp_prefill_path)):
+                            ("tp_prefill", tp_prefill_path),
+                            ("tp_decode", tp_decode_path),
+                            ("sp_prefill", sp_prefill_path)):
             t0 = time.perf_counter()
             record, launches = path(dev, tmp)
             record["phase_seconds"] = time.perf_counter() - t0

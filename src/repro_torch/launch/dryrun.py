@@ -9,30 +9,35 @@ per device.
 Outputs one JSON per cell under experiments/dryrun_torch/.
 
 The JAX package lowers and compiles each cell for 512 forced host devices
-and reads XLA's analyses.  Here one process stands for rank 0 of a fake
+and reads XLA's analyses.  Here one process stands for one rank of a fake
 process group of 256 or 512 ranks (``torch.testing``'s ``fake`` backend:
 collectives return at once) and runs one step of the port's sharded design
 under ``FakeTensorMode`` (shapes only, no memory): the arguments are placed
-by the rule tables (``parallel.sharding``) and each rank takes its batch
-shard.  In the train and prefill cells of the configs whose rule tables
+by the rule tables (``parallel.sharding``) and the rank computes on its
+shards.  In the train and prefill cells of the configs whose rule tables
 shard over "model" (qwen2.5-32b, grok-1-314b, jamba-v0.1-52b) each layer
-gathers its weights over the data axes only and rank 0 computes its own
+gathers its weights over the data axes only and the rank computes its own
 heads, channels and experts (the tensor-parallel model of
 ``models.model``; its all-reduces and all-to-alls are recorded like any
-collective); every other cell, and decode, gathers each layer's weights
-whole.  Train cells run the sharded Trainer's step (``make_train_step``
-with the loss scaled by ``1 / sharding.batch_ranks``, ``grad_accum``
-microbatches placed one by one); prefill and decode cells run the serve
-steps, the batch's sequence split (``seq_over_model``) and the caches'
-sequence split gathered at the step's start (the model runs on whole
-sequences).  A train step of more than ``MAX_TRACED_MICRO``
+collective).  Decode cells do the same for every config (the decode rule
+table), over the rank's positions of the KV cache as ``cache_specs``
+places it.  The ``fsdp_only`` configs' prefill cells run the rank on its
+block of the sequence (``seq_over_model``).  Nothing is gathered whole but
+the weights a rule table does not split.  The rank traced is rank 0, or
+for a cell whose sequence is split the last rank of its sequence group
+(:func:`traced_rank`, recorded): a split prefill's busiest, whose block
+attends to every block before it.  Train cells run the sharded Trainer's
+step (``make_train_step`` with the loss scaled by ``1 /
+sharding.batch_ranks``, ``grad_accum`` microbatches placed one by one);
+prefill and decode cells run the serve steps on the placed arguments.
+A train step of more than ``MAX_TRACED_MICRO``
 microbatches (grok-1's 16) is traced at 2 and 3 and extrapolated, each
 microbatch past the first repeating the same work.  The Mamba and RWKV
 training segments' backward recompute (the plain scan, a Python loop of
 ~40 ops a step) is traced as one op a segment and one for its VJP,
 counted at the scan kernel's FLOP formula and twice that; their bytes
-accessed are then only those ops' inputs and outputs.  Per rank 0 it
-records:
+accessed are then only those ops' inputs and outputs.  Per traced rank
+it records:
   - ``memory``: the argument bytes (the local shards) and, from
     ``MemTracker``, the peak of the step's own live tensors;
   - ``cost``: ``flops`` from ``FlopCounterMode`` (each model kernel is one
@@ -65,6 +70,7 @@ from repro_torch.launch.steps import input_specs, make_train_step
 from repro_torch.optim.adamw import AdamWState
 from repro_torch.parallel import ctx as pctx
 from repro_torch.parallel import sharding as SH
+from repro_torch.parallel.sharding import P
 
 OUT_DIR = Path(__file__).resolve().parents[3] / "experiments" / "dryrun_torch"
 
@@ -287,17 +293,19 @@ def _segment_ops():
         mamba_ops.mamba_ssm_ref, wkv_ops.rwkv6_wkv_ref = old
 
 
-def _fake_group(n: int) -> None:
+def _fake_group(n: int, rank: int = 0) -> None:
     """The default group as a fake group of ``n`` ranks, this process rank
-    0 (an existing fake group of that size is kept)."""
+    ``rank`` (an existing fake group of that size and rank is kept)."""
     import torch.distributed as dist
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
     if dist.is_initialized():
-        if dist.get_backend() == "fake" and dist.get_world_size() == n:
+        if dist.get_backend() == "fake" and dist.get_world_size() == n \
+                and dist.get_rank() == rank:
             return
         dist.destroy_process_group()
-    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=n)
 
 
 def make_mesh_by_name(mesh_name: str):
@@ -316,14 +324,44 @@ def _local_bytes(tree) -> int:
                if isinstance(x, torch.Tensor))
 
 
-def _batch_local(x, spec):
-    """A placed batch or cache leaf gathered to its batch split alone
-    (dim 0's axes kept, every other dim whole): the model's input."""
-    return SH.local(pctx.constrain(x, spec[0], *([None] * (x.ndim - 1))))
+def _seq_axes(cell, mesh) -> tuple:
+    """The mesh axes a serve cell's sequence is split over (none for a
+    train cell): a prefill's batch over "model" for the fsdp_only configs
+    (``batch_specs(seq_over_model=True)``), a decode's KV cache as
+    ``cache_specs`` places it."""
+    cfg = cell.cfg
+    if cell.kind == "prefill" and cfg.fsdp_only:
+        spec = SH.batch_specs(cell.args[1], mesh, seq_over_model=True)
+        spec = next(iter(spec.values()))
+    elif cell.kind == "decode":
+        cache = cell.args[1]
+        specs = SH.cache_specs(cfg, cache, mesh, cell.shape.global_batch)
+        spec = next((s["k"] for s in specs if "k" in s), P())
+    else:
+        return ()
+    ax = tuple(spec)[1] if len(tuple(spec)) > 1 else None
+    return () if ax is None else (ax if isinstance(ax, tuple) else (ax,))
+
+
+def traced_rank(cell, mesh) -> int:
+    """The rank a cell is traced as: rank 0, or for a cell whose sequence
+    is split the last rank of its sequence group at coordinate 0 of every
+    other axis (the busiest: a split prefill's last block attends to every
+    block before it; a decode's last block holds the position it
+    writes)."""
+    axes = _seq_axes(cell, mesh)
+    shape = SH.view(mesh).shape
+    names = SH.view(mesh).axis_names
+    coord = [shape[a] - 1 if a in axes else 0 for a in names]
+    rank = 0
+    for a, c in zip(names, coord):
+        rank = rank * shape[a] + c
+    return rank
 
 
 def _placed(cell, mesh):
-    """(args, step) of ``cell`` with the arguments placed on ``mesh``."""
+    """(args, step) of ``cell`` with the arguments placed on ``mesh``: the
+    step takes them as placed (each rank computes on its own shards)."""
     cfg, kind = cell.cfg, cell.kind
     params = cell.args[0]
     pspec = SH.param_specs(params, mesh, mode=kind, fsdp_only=cfg.fsdp_only,
@@ -341,35 +379,35 @@ def _placed(cell, mesh):
     if kind == "prefill":
         batch = cell.args[1]
         bspec = SH.batch_specs(batch, mesh, seq_over_model=cfg.fsdp_only)
-        batch = SH.distribute(batch, bspec, mesh)
-
-        def prefill(p, b):
-            return cell.step(p, {k: _batch_local(v, bspec[k])
-                                 for k, v in b.items()})
-        return (params, batch), prefill
+        return (params, SH.distribute(batch, bspec, mesh)), cell.step
     cache, batch, pos = cell.args[1:]
     cspec = SH.cache_specs(cfg, cache, mesh, cell.shape.global_batch)
     cache = SH.distribute(cache, cspec, mesh)
-    bspec = SH.batch_specs(batch, mesh)
-    batch = SH.distribute(batch, bspec, mesh)
-
-    def decode(p, c, b, pos):
-        c = [{k: _batch_local(v, s[k]) for k, v in lc.items()}
-             for lc, s in zip(c, cspec)]
-        return cell.step(p, c, {k: _batch_local(v, bspec[k])
-                                for k, v in b.items()}, pos)
-    return (params, cache, batch, pos), decode
+    batch = SH.distribute(batch, SH.batch_specs(batch, mesh), mesh)
+    return (params, cache, batch, pos), cell.step
 
 
-def _trace(step, args, mesh, dp_all: bool) -> dict:
+def _trace(step, args, mesh, dp_all: bool, decode: bool = False) -> dict:
     """One traced call of ``step`` under the cell's policy: FLOP, bytes
     accessed, data-moving ops, collectives and the peak of its own live
-    tensors."""
+    tensors.  A decode step's argument shards are tracked from the start
+    and their bytes taken off the peak: it writes its cache shards in
+    place, and ``MemTracker`` counts an untracked storage that an op
+    returns as new memory (the cache again, a layer at a time).  Train and
+    prefill cells keep the count of earlier records, which takes the
+    arguments that an op returns or updates in place as temporaries too
+    (``PERF.md`` §7)."""
     from torch.distributed._tools.mem_tracker import MemTracker
     from torch.utils.flop_counter import FlopCounterMode
 
     mem, flops = MemTracker(), FlopCounterMode(display=False)
     comm, traffic = _comm_recorder(), BytesAccessed()
+    held = 0
+    if decode:
+        shards = [SH.local(x) for x in leaves(args)
+                  if isinstance(x, torch.Tensor)]
+        mem.track_external(*shards)
+        held = sum(_nbytes(x) for x in shards)
     with pctx.policy(mesh, dp_all_axes=dp_all), _segment_ops(), mem, \
             flops, comm, traffic:
         step(*args)
@@ -377,7 +415,7 @@ def _trace(step, args, mesh, dp_all: bool) -> dict:
             "bytes": float(traffic.bytes), "ops": traffic.ops,
             "coll": collective_bytes(comm.records),
             "peak": max(snap["Total"] for snap in
-                        mem.get_tracker_snapshot("peak").values())}
+                        mem.get_tracker_snapshot("peak").values()) - held}
 
 
 def _extrapolated(t2: dict, t3: dict, n: int) -> dict:
@@ -404,6 +442,11 @@ def run_cell(arch: str, shape_name: str, mesh_name: str,
     mesh = make_mesh_by_name(mesh_name)
     n_chips = mesh.size()
     cell = input_specs(arch, shape_name)
+    rank = traced_rank(cell, mesh)
+    if rank:                                  # this process as that rank
+        shape = tuple(SH.view(mesh).shape.values())
+        _fake_group(int(n_chips), rank)
+        mesh = make_mesh(shape)
     t0 = time.time()
     dp_all = cell.kind == "train" and cell.cfg.fsdp_only
     with cell.mode:
@@ -416,12 +459,12 @@ def run_cell(arch: str, shape_name: str, mesh_name: str,
                                        dp_all) for k in (2, 3)),
                               len(micro))
         else:
-            t = _trace(step, args, mesh, dp_all)
+            t = _trace(step, args, mesh, dp_all, cell.kind == "decode")
         t_trace = time.time() - t0 - t_place
     coll, peak = t["coll"], t["peak"]
     rec = {
         "arch": arch, "shape": shape_name, "mesh": mesh_name,
-        "kind": cell.kind, "n_chips": int(n_chips),
+        "kind": cell.kind, "n_chips": int(n_chips), "traced_rank": rank,
         "seq_len": cell.shape.seq_len,
         "global_batch": cell.shape.global_batch,
         "microbatches": None if micro is None else len(micro),

@@ -22,7 +22,8 @@ from repro_torch._tree import leaves, map_tree, unflatten
 from repro_torch.models import model as MD
 from repro_torch.optim import adamw
 from repro_torch.parallel import ctx as pctx
-from repro_torch.parallel.sharding import distribute, local, param_specs
+from repro_torch.parallel.sharding import (cache_specs, distribute, local,
+                                            param_specs)
 
 # Architectures whose optimizer moments are stored in bf16 so that
 # params+moments fit the device memory.
@@ -112,12 +113,22 @@ def shard_params(params, cfg, mesh, mode: str = "prefill"):
     return distribute(params, specs, mesh)
 
 
+def shard_cache(cache, cfg, mesh, B: int):
+    """A decode cache (``init_cache``'s list, whole) as DTensors on
+    ``mesh``, placed by ``parallel.sharding.cache_specs`` for a global
+    batch of ``B``: KV sequences over "model" (every axis when the batch
+    does not divide), the scans' states over "model" by feature."""
+    return distribute(cache, cache_specs(cfg, cache, mesh, B), mesh)
+
+
 def make_prefill_step(cfg, mesh=None):
     """(params, batch) -> (next_token, cache).  With a ``mesh`` the params
     are :func:`shard_params`' and the step runs under its policy: on a
     "model" axis wider than 1 each rank computes its own heads, channels
-    and experts (tensor parallelism, ``models.model``); the batch is this
-    rank's, the logits and the cache whole."""
+    and experts (tensor parallelism, ``models.model``), or, for an
+    ``fsdp_only`` config whose batch is placed with its sequence over
+    "model", its own block of positions (``models.model.apply_prefill``);
+    the batch is this rank's, the logits whole."""
 
     @torch.inference_mode()
     def prefill_step(params, batch):
@@ -128,12 +139,18 @@ def make_prefill_step(cfg, mesh=None):
     return prefill_step
 
 
-def make_decode_step(cfg):
-    """(params, cache, batch, pos) -> (next_token, cache)."""
+def make_decode_step(cfg, mesh=None):
+    """(params, cache, batch, pos) -> (next_token, cache).  With a ``mesh``
+    the params are ``shard_params(..., mode="decode")``'s, the cache
+    :func:`shard_cache`'s and the batch placed by ``batch_specs``; the
+    step runs under the mesh's policy, each rank on its heads, channels,
+    experts and cache positions (``models.model.apply_decode``), and
+    returns its rows' next tokens."""
 
     @torch.inference_mode()
     def decode_step(params, cache, batch, pos):
-        logits, cache = MD.apply_decode(params, cfg, cache, batch, pos)
+        with pctx.policy(mesh) if mesh is not None else nullcontext():
+            logits, cache = MD.apply_decode(params, cfg, cache, batch, pos)
         return torch.argmax(logits, dim=-1).to(torch.int32), cache
 
     return decode_step
@@ -224,4 +241,4 @@ __all__ = ["BF16_MOMENT_PARAM_THRESHOLD", "CellSpec", "SERVE_DTYPE",
            "abstract_batch", "abstract_cache", "abstract_opt",
            "abstract_params", "fake_mode", "input_specs", "make_decode_step",
            "make_prefill_step", "make_train_step", "moment_dtype_for",
-           "shard_params", "value_and_grad"]
+           "shard_cache", "shard_params", "value_and_grad"]

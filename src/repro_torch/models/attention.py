@@ -34,7 +34,17 @@ and sends nothing.  A rank whose heads straddle a KV group boundary
 without covering whole groups reads its KV heads repeated once per q head
 (G = 1); no config's split does.  A prefill gathers the ranks' K / V
 columns instead (it returns the whole cache) and takes its heads from
-them.
+them.  A decode step gathers the new token's q, k and v columns whole
+(B x (H + 2 Kv) x hd values) and attends with every head; only ``wo`` is
+split (its rows), so no head exchange is needed for any head count.
+
+Sequence splits (``split``, a :class:`~repro_torch.parallel.sharding.
+SeqSplit` of more than one rank): an ``fsdp_only`` prefill runs rank r's
+block of queries over the K / V blocks 0..r, gathered, with one kernel
+launch a block (:func:`_split_prefill`); a decode step writes the new K /
+V on the rank holding ``pos`` and attends over each rank's positions of
+the cache, the softmax combined over the ranks so that the JAX package's
+rounding of the normalised probabilities holds (:func:`decode_attention`).
 """
 from __future__ import annotations
 
@@ -43,6 +53,7 @@ import torch
 from repro_torch._tree import map_tree
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.parallel import ctx as pctx
+from repro_torch.parallel.sharding import SeqSplit
 
 from .layers import (apply_mrope, apply_rope, linear, linear_init, rmsnorm,
                      rmsnorm_init)
@@ -237,8 +248,16 @@ def attn_train(p, x, cfg, positions, tp: bool = False):
     return linear(p["wo"], o.reshape(B, S, -1))
 
 
-def attn_prefill(p, x, cfg, positions, tp: bool = False):
-    """-> (y, (k, v)), the layer's whole K / V for the cache."""
+def attn_prefill(p, x, cfg, positions, tp: bool = False, split=None):
+    """-> (y, (k, v)), the layer's K / V for the cache: whole, or with a
+    sequence ``split`` (a :class:`~repro_torch.parallel.sharding.SeqSplit`
+    of more than one rank) this rank's positions (:func:`_split_prefill`).
+    """
+    if split is not None and split.n > 1:
+        if tp:
+            raise ValueError("a sequence-split prefill has no tensor-"
+                             "parallel form (its weights are replicated)")
+        return _split_prefill(p, x, cfg, positions, split)
     if tp:
         q, k, v, kv = _project_qkv_tp(p, x, cfg, positions, whole_kv=True)
         return _out_tp(p, causal_attention(q, k, v), cfg), kv
@@ -248,46 +267,114 @@ def attn_prefill(p, x, cfg, positions, tp: bool = False):
     return linear(p["wo"], o.reshape(B, S, -1)), (k, v)
 
 
-def decode_attention(q, k_cache, v_cache, kv_len: int):
-    """q: (B, 1, H, hd); caches: (B, S_max, Kv, hd); kv_len: valid prefix
+def _split_prefill(p, x, cfg, positions, split):
+    """Causal attention of this rank's block of queries (positions [lo, hi)
+    of the sequence) over keys [0, hi): the K / V blocks of the sequence
+    group gathered, the kernel run once a block at the block's length
+    (its own block causal, each earlier one full, each with its rows'
+    log-sum-exp), and the partial outputs merged by their LSEs in f32:
+    o = sum_i exp(lse_i - lse) o_i, lse = logsumexp_i lse_i."""
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    kv = pctx.seq_gather(torch.stack([k, v]), split)   # (n, 2, B, s, Kv, hd)
+    parts = [flash_attention(q, k, v, causal=True, return_lse=True)]
+    parts += [flash_attention(q, kv[j, 0], kv[j, 1], causal=False,
+                              return_lse=True) for j in range(split.index)]
+    lses = torch.stack([lse for _, lse in parts])       # (r + 1, B, s, H)
+    lse = torch.logsumexp(lses, 0)
+    o = sum(torch.exp(lses[i] - lse)[..., None] * o_i.float()
+            for i, (o_i, _) in enumerate(parts)).to(q.dtype)
+    B, S, _, _ = o.shape
+    return linear(p["wo"], o.reshape(B, S, -1)), (k, v)
+
+
+def decode_attention(q, k_cache, v_cache, kv_len: int, split=None):
+    """q: (B, 1, H, hd); caches: (B, S_max, Kv, hd), or with a sequence
+    ``split`` this rank's positions [lo, hi) of them; kv_len: valid prefix
     length.  Scores and the PV sum in f32; the normalised probabilities are
     rounded to the cache's dtype before the PV product, as in the JAX
-    package."""
+    package.  Split, the softmax is combined in three steps that keep that
+    rounding: the max and then the sum of exponentials all-reduced over
+    the sequence group, each rank's normalised, rounded PV partial summed
+    by a third all-reduce."""
     B, Smax, Kv, hd = k_cache.shape
     H = q.shape[2]
     G = H // Kv
     scale = hd ** -0.5
+    split = split or SeqSplit(length=Smax)
     qg = q.reshape(B, Kv, G, hd)
     s = torch.einsum("bkgd,btkd->bkgt", qg.float(), k_cache.float()) * scale
-    pos = torch.arange(Smax, device=q.device)
+    pos = torch.arange(split.lo, split.lo + Smax, device=q.device)
     s = torch.where(pos[None, None, None, :] < kv_len, s,
                     torch.full_like(s, NEG_INF))
-    m = s.amax(-1, keepdim=True)
+    m = pctx.seq_max(s.amax(-1, keepdim=True), split)
     p = torch.exp(s - m)
-    denom = p.sum(-1, keepdim=True)
+    denom = pctx.seq_sum(p.sum(-1, keepdim=True), split)
     pv = (p / denom).to(v_cache.dtype).float()
-    o = torch.einsum("bkgt,btkd->bkgd", pv, v_cache.float())
+    o = pctx.seq_sum(torch.einsum("bkgt,btkd->bkgd", pv, v_cache.float()),
+                     split)
     return o.reshape(B, 1, H, hd).to(q.dtype)
 
 
-def attn_decode(p, x, cfg, k_cache, v_cache, pos: int):
-    """x: (B, 1, d); caches (B, S_max, Kv, hd); pos: the current position.
+def _project_token_tp(p, x, cfg):
+    """The new token's q, k and v (B, 1, H | Kv, hd) from this rank's
+    columns of ``wq`` / ``wk`` / ``wv`` (and of the bias): the ranks'
+    columns gathered in one all-gather, B x (H + 2 Kv) x hd values, so
+    every rank has every head, whatever the heads' split."""
+    B = x.shape[0]
+    H, Kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    cols = [linear(p[n], x) for n in ("wq", "wk", "wv")]
+    widths = [c.shape[-1] for c in cols]
+    n = pctx.tp_size()
+    if [w * n for w in widths] != [H * hd, Kv * hd, Kv * hd]:
+        raise ValueError(f"attention columns {widths} a rank are not the "
+                         f"split of {(H * hd, Kv * hd, Kv * hd)} over {n}")
+    got = pctx.gather_tp(torch.cat(cols, -1)[None], 0)   # (n, B, 1, sum)
+    out, a = [], 0
+    for w, heads in zip(widths, (H, Kv, Kv)):
+        out.append(got[..., a:a + w].permute(1, 2, 0, 3)
+                   .reshape(B, 1, heads, hd))
+        a += w
+    return out
+
+
+def attn_decode(p, x, cfg, k_cache, v_cache, pos: int, tp: bool = False,
+                split=None):
+    """x: (B, 1, d); caches (B, S_max, Kv, hd), or with a sequence
+    ``split`` this rank's positions of them; pos: the current position.
 
     Writes the new token's K/V into the caches **in place** (the JAX
-    package returns updated copies and donates the old ones) and returns
-    (y, k_cache, v_cache).  Like ``jax.lax.dynamic_update_slice``, the write
-    index is clamped to ``S_max - 1``; the mask keeps ``pos + 1`` keys.
+    package returns updated copies and donates the old ones), on the rank
+    that holds ``pos`` alone, and returns (y, k_cache, v_cache).  Like
+    ``jax.lax.dynamic_update_slice``, the write index is clamped to
+    ``S_max - 1``; the mask keeps ``pos + 1`` keys.  With ``tp`` the
+    projections are this rank's column shards and ``wo`` its rows: the
+    token's q, k, v are gathered whole (:func:`_project_token_tp`),
+    qk-norm and RoPE run on every head, attention over the rank's cache
+    positions for every head, and the rank's columns of the output enter
+    its rows of ``wo``, whose partial sums are added over the ranks.
     """
     B = x.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     if cfg.mrope_sections:  # text-only decode: all three M-RoPE indices = pos
         positions = positions.expand(3, B, 1)
-    q, k, v = _project_qkv(p, x, cfg, positions)
-    at = min(max(pos, 0), k_cache.shape[1] - 1)
-    k_cache[:, at] = k[:, 0].to(k_cache.dtype)
-    v_cache[:, at] = v[:, 0].to(v_cache.dtype)
-    o = decode_attention(q, k_cache, v_cache, pos + 1)
-    y = linear(p["wo"], o.reshape(B, 1, -1))
+    if tp:
+        q, k, v = _project_token_tp(p, x, cfg)
+        q, k = _rotate(q, k, p, cfg, positions)
+    else:
+        q, k, v = _project_qkv(p, x, cfg, positions)
+    split = split or SeqSplit(length=k_cache.shape[1])
+    if split.owner(pos) == split.index:
+        at = min(max(pos, 0), split.length - 1) - split.lo
+        k_cache[:, at] = k[:, 0].to(k_cache.dtype)
+        v_cache[:, at] = v[:, 0].to(v_cache.dtype)
+    o = decode_attention(q, k_cache, v_cache, pos + 1, split)
+    o = o.reshape(B, 1, -1)
+    if tp:
+        w = p["wo"]["w"].shape[0]
+        r = pctx.tp_rank()
+        y = pctx.reduce_from_tp(linear(p["wo"], o[..., r * w:(r + 1) * w]))
+    else:
+        y = linear(p["wo"], o)
     return y, k_cache, v_cache
 
 

@@ -40,7 +40,9 @@ and prefill shape (d = 4,096 against thousands of tokens a microbatch)
 and their number does not grow with the batch.  ``x_proj``'s small
 (B, S, dt_rank + 2 d_state) partial product is all-reduced, and so is its
 gradient (it feeds each rank's channels again); ``out_proj``'s partial
-sums are added over the ranks.  A given SSM state is the rank's channels.
+sums are added over the ranks.  A given SSM state is the rank's channels;
+a decode step runs this form at S = 1 on the cache's shards of the conv
+and SSM states (``cache_specs`` splits their channels over "model").
 """
 from __future__ import annotations
 

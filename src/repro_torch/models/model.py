@@ -33,18 +33,25 @@ as serving: the MoE's expert matmuls (three a MoE layer, each with a
 recomputed by the plain scan in the backward; with ``remat="full"`` the
 layer's forward runs again in the backward, and its launches with it.
 
-Under a mesh (``Trainer(mesh=...)``, the dry run, a sharded prefill) the
-params are DTensors.  Where ``parallel.ctx`` has a "model" axis wider than
-1 (the configs whose rule tables shard over "model": qwen2.5-32b,
-grok-1-314b, jamba-v0.1-52b), the train and prefill steps gather each
-weight over the batch axes only (``sharding.gather_local``, which names
-the weights it left split, from their placements) and every module whose
-weights stay split over "model" runs its tensor-parallel form (Megatron-style column / row pairs: ``layers.embed`` / ``mlp`` /
-``chunked_softmax_xent``, ``attention``, ``moe``, ``mamba``), each rank on
-its own heads, channels and experts; a module whose weights the rule table
-left whole runs as on one device on every rank.  Otherwise (``fsdp_only``,
-a 1-wide "model" axis, and decode) each layer gathers its weights whole
-(``sharding.gather``) and every rank computes on them.
+Under a mesh (``Trainer(mesh=...)``, the dry run, the sharded serve
+steps) the params are DTensors.  Where ``parallel.ctx`` has a "model" axis
+wider than 1 (train and prefill of the configs whose rule tables shard
+over "model": qwen2.5-32b, grok-1-314b, jamba-v0.1-52b; decode of every
+config, on the decode rule table), each step gathers each weight over the
+batch axes only (``sharding.gather_local``, which names the weights it
+left split, from their placements) and every module whose weights stay
+split over "model" runs its tensor-parallel form (Megatron-style column /
+row pairs: ``layers.embed`` / ``mlp`` / ``chunked_softmax_xent``,
+``attention``, ``moe``, ``mamba``, ``rwkv6``), each rank on its own
+heads, channels and experts; a module whose weights the rule table left
+whole runs as on one device on every rank.  Otherwise (``fsdp_only``
+training, a 1-wide "model" axis) each layer gathers its weights whole
+(``sharding.gather``) and every rank computes on them.  The serve steps
+read placed batches and caches as this rank's shards (``sharding.local``,
+``sharding.seq_split``): a decode attends over the rank's positions of a
+sequence-split KV cache, and an ``fsdp_only`` prefill whose batch's
+sequence is split over "model" runs each rank on its own block of
+positions; neither gathers a sequence or a cache whole.
 """
 from __future__ import annotations
 
@@ -55,7 +62,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import _device
 from repro_torch.parallel import ctx as pctx
-from repro_torch.parallel.sharding import gather, gather_local
+from repro_torch.parallel.sharding import (gather, gather_local, local,
+                                            seq_split)
 
 from . import attention as A
 from . import mamba as M
@@ -144,39 +152,52 @@ def layer_cache_init(cfg, i: int, B: int, max_len: int, dtype, device=None):
                                device=device)}
 
 
-def _channel(p, x, cfg, i: int, cache, tp=frozenset()):
+def _channel(p, x, cfg, i: int, cache, tp=frozenset(), split=None):
     """The channel half of layer i; the RWKV channel mix reads the previous
     token from ``cache["x_cm"]`` (zero after ``layer_cache_init``) and
-    writes its input's last token there."""
+    writes its input's last token there.  With a sequence ``split`` of more
+    than one rank (a split prefill, from zero) x is this rank's block: the
+    RWKV mix's first previous token is the rank before's, and the last
+    token written is the sequence's."""
     h = norm_apply(cfg.norm, p["norm2"], x)
     ch = cfg.channel_kind(i)
     if ch == "mlp":
         return x + mlp(p["mlp"], h, cfg.mlp_kind, "mlp" in tp)
     if ch == "moe":
-        h, _ = X.moe_apply(p["moe"], h, cfg, "moe" in tp)
+        h, _ = X.moe_apply(p["moe"], h, cfg, "moe" in tp, split)
         return x + h
-    h, x_last = R.channelmix_apply(p["rwkv_cm"], h, cfg, cache["x_cm"])
+    if split is not None and split.n > 1:
+        h, x_last = R.channelmix_apply(p["rwkv_cm"], h, cfg, split=split)
+        cache["x_cm"].copy_(pctx.seq_last(x_last, split))
+        return x + h
+    h, x_last = R.channelmix_apply(p["rwkv_cm"], h, cfg, cache["x_cm"],
+                                   "rwkv_cm" in tp)
     cache["x_cm"].copy_(x_last)
     return x + h
 
 
-def layer_decode(p, cache, x, cfg, i: int, pos: int):
+def layer_decode(p, cache, x, cfg, i: int, pos: int, tp=frozenset(),
+                 split=None):
     """Single-token step. x: (B, 1, d); pos: int. -> (x, cache), the
-    cache's tensors updated in place."""
+    cache's tensors updated in place.  ``tp``: the modules whose weights in
+    ``p`` are this rank's shards over "model" (their tensor-parallel forms
+    run, on the cache's shards of their states); ``split``: the
+    :class:`~repro_torch.parallel.sharding.SeqSplit` of an attention
+    layer's KV cache, whose positions this rank holds."""
     h = norm_apply(cfg.norm, p["norm1"], x)
     mix = cfg.mixer_kind(i)
     if mix == "attn":
         h, _, _ = A.attn_decode(p["attn"], h, cfg, cache["k"], cache["v"],
-                                pos)
+                                pos, "attn" in tp, split)
     elif mix == "mamba":
         h, (conv, _) = M.mamba_apply(p["mamba"], h, cfg, cache["conv"],
-                                     cache["ssm"])
+                                     cache["ssm"], tp="mamba" in tp)
         cache["conv"].copy_(conv)
     else:
         h, (x_last, _) = R.timemix_apply(p["rwkv_tm"], h, cfg, cache["x_tm"],
-                                         cache["wkv"])
+                                         cache["wkv"], "rwkv_tm" in tp)
         cache["x_tm"].copy_(x_last)
-    return _channel(p, x + h, cfg, i, cache), cache
+    return _channel(p, x + h, cfg, i, cache, tp), cache
 
 
 # ================================================================== model ====
@@ -199,10 +220,13 @@ def init_params(gen, cfg, device=None) -> Params:
     return p
 
 
-def _positions(cfg, batch, B, S, device):
+def _positions(cfg, batch, B, S, device, offset: int = 0):
+    """The batch's positions, or ``offset + arange(S)`` (M-RoPE's text
+    default: t = h = w = that index)."""
     if "positions" in batch:
         return batch["positions"]
-    pos = torch.arange(S, dtype=torch.int32, device=device)[None, :]
+    pos = torch.arange(offset, offset + S, dtype=torch.int32,
+                       device=device)[None, :]
     pos = pos.expand(B, S)
     if cfg.mrope_sections:  # text default: t = h = w = linear index
         pos = pos[None].expand(3, B, S)
@@ -306,33 +330,68 @@ def init_cache(cfg, B: int, max_len: int, dtype=torch.bfloat16, device=None):
             for i in range(cfg.n_layers)]
 
 
+def _local_batch(batch):
+    """(the batch's leaves as this rank's plain shards, the
+    :class:`~repro_torch.parallel.sharding.SeqSplit` of its sequence: the
+    ``tokens`` or ``embeds`` leaf's dim 1)."""
+    key = "tokens" if "tokens" in batch else "embeds"
+    split = seq_split(batch[key], 1)
+    return {k: local(v) for k, v in batch.items()}, split
+
+
 def apply_prefill(params, cfg, batch, max_len: int | None = None):
     """Processes the prompt; returns (logits_last (B, V), cache at len S).
 
     The returned attention caches have length ``max_len`` (default S) so
     decode can write in place; S > ``max_len`` raises, as the JAX package's
     cache update fails there.
+
+    A batch placed with its sequence split over ranks
+    (``batch_specs(..., seq_over_model=True)``, the ``fsdp_only`` configs'
+    prefill under a mesh, weights replicated) runs split: this rank's
+    block of positions through every layer (attention over the blocks up
+    to its own, the RWKV scan carried across the ranks, the MoE's capacity
+    the whole row's), and the last token's logits from the last rank on
+    every rank.  The cache leaves the step split as placed: each attention
+    cache holds this rank's rows of its positions (``max_len`` must be S),
+    and the RWKV states and last tokens the sequence's end on every rank.
     """
+    batch, split = _local_batch(batch)
     params, outer_tp = _outer(params)
     x = embed_inputs(params, cfg, batch, "embed" in outer_tp)
     B, S, _ = x.shape
+    if split.n > 1:
+        if not cfg.fsdp_only:
+            raise ValueError(f"{cfg.name}: a sequence-split prefill is the "
+                             "fsdp_only configs' (replicated weights)")
+        if (max_len or split.length) != split.length:
+            raise ValueError("a sequence-split prefill's cache is the "
+                             f"prompt's {split.length} positions, not "
+                             f"max_len={max_len}")
+        max_len = S
     max_len = max_len or S
     if S > max_len:
         raise ValueError(f"prompt length {S} exceeds the cache length "
                          f"max_len={max_len}")
-    positions = _positions(cfg, batch, B, S, x.device)
+    positions = _positions(cfg, batch, B, S, x.device, split.lo)
     cdt = x.dtype
     cache = []
     for i, lp in enumerate(params["layers"]):
         lp, tp = _gather(lp)
+        if split.n > 1 and tp:
+            raise ValueError(f"a sequence-split prefill with weights split "
+                             f"over 'model': {sorted(tp)}")
         lc = layer_cache_init(cfg, i, B, max_len, cdt, x.device)
         h = norm_apply(cfg.norm, lp["norm1"], x)
         mix = cfg.mixer_kind(i)
         if mix == "attn":
             h, (k, v) = A.attn_prefill(lp["attn"], h, cfg, positions,
-                                       "attn" in tp)
+                                       "attn" in tp, split)
             lc["k"][:, :S] = k.to(cdt)
             lc["v"][:, :S] = v.to(cdt)
+        elif mix == "mamba" and split.n > 1:
+            raise ValueError("no sequence-split Mamba prefill (no "
+                             "fsdp_only config has Mamba)")
         elif mix == "mamba" and "mamba" in tp:   # the rank's channels
             n = pctx.tp_size()
             ssm = lc["ssm"].chunk(n, 1)[pctx.tp_rank()].clone()
@@ -345,12 +404,14 @@ def apply_prefill(params, cfg, batch, max_len: int | None = None):
                                          ssm_state=lc["ssm"])
             lc["conv"].copy_(conv)
         else:
-            h, (x_last, _) = R.timemix_apply(lp["rwkv_tm"], h, cfg,
-                                             state=lc["wkv"])
-            lc["x_tm"].copy_(x_last)
-        x = _channel(lp, x + h, cfg, i, lc, tp)
+            h, (x_last, st) = R.timemix_apply(lp["rwkv_tm"], h, cfg,
+                                              state=lc["wkv"], split=split)
+            lc["x_tm"].copy_(pctx.seq_last(x_last, split))
+            lc["wkv"].copy_(pctx.seq_last(st, split))
+        x = _channel(lp, x + h, cfg, i, lc, tp, split)
         cache.append(lc)
-    x = norm_apply(cfg.norm, params["final_norm"], x[:, -1:, :])
+    x = norm_apply(cfg.norm, params["final_norm"],
+                   pctx.seq_last(x[:, -1:, :], split))
     logits = linear(params["head"], x)[:, 0, :]
     if "head" in outer_tp:                       # the ranks' vocab columns
         logits = pctx.gather_tp(logits, -1)
@@ -361,17 +422,29 @@ def apply_decode(params, cfg, cache, batch, pos: int):
     """One decode step. batch: tokens (B, 1) | embeds (B, 1, d); pos: int.
 
     Returns (logits (B, V), cache); the cache tensors are updated in place.
+    Under a mesh the params, the cache and the batch are placed
+    (``shard_params(mode="decode")``, ``shard_cache``, ``batch_specs``):
+    each layer's weights are gathered over the batch axes only and its
+    modules split over "model" run their tensor-parallel forms on the
+    cache's shards of their states; each attention layer reads the
+    positions of its KV cache this rank holds (``sharding.seq_split``);
+    nothing is gathered whole.  The batch is this rank's rows and so are
+    the logits.
     """
-    params, _ = _outer(params, tp=False)
-    x = embed_inputs(params, cfg, batch)
+    batch, _ = _local_batch(batch)
+    params, outer_tp = _outer(params)
+    x = embed_inputs(params, cfg, batch, "embed" in outer_tp)
     pos = int(pos)
-    new = []
     for i, (lp, lc) in enumerate(zip(params["layers"], cache)):
-        x, lc = layer_decode(gather(lp), lc, x, cfg, i, pos)
-        new.append(lc)
+        lp, tp = _gather(lp)
+        split = seq_split(lc["k"], 1) if "k" in lc else None
+        x, _ = layer_decode(lp, {k: local(v) for k, v in lc.items()}, x,
+                            cfg, i, pos, tp, split)
     x = norm_apply(cfg.norm, params["final_norm"], x)
     logits = linear(params["head"], x)[:, 0, :]
-    return logits, new
+    if "head" in outer_tp:
+        logits = pctx.gather_tp(logits, -1)
+    return logits, cache
 
 
 __all__ = ["apply_decode", "apply_prefill", "apply_train", "dummy_batch",

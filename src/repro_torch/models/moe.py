@@ -41,7 +41,13 @@ run on their slice of the dispatched rows and the combine takes only
 their slots.  Either way the ranks' combines are added (one all-reduce),
 and the dispatched rows and the gates enter the rank's share through
 ``pctx.copy_to_tp`` so that their gradients are whole; no all-to-all is
-needed while activations are replicated over "model".
+needed while activations are replicated over "model".  A decode step
+runs the same form at S = 1.
+
+A sequence split over ranks (an ``fsdp_only`` prefill, replicated
+weights) keeps the whole row's capacity and dispatch order: each rank
+counts the entries of the ranks before it and its experts run on its
+block of every expert's slots (:func:`_split_experts`).
 """
 from __future__ import annotations
 
@@ -99,13 +105,18 @@ def capacity(tokens_per_group: int, cfg) -> int:
     return -(-c // 8) * 8 if c >= 8 else c       # multiple of 8 when large
 
 
-def _group_dispatch(x, gates, idx, E: int, C: int):
+def _group_dispatch(x, gates, idx, E: int, C: int, before=None,
+                    stride: int | None = None):
     """Dispatch of every group at once.  x: (G, T, d); gates, idx: (G, T,
     k).
 
     Returns (x_exp (G, E, C, d), slot, keep, t_s, g_s), each of the last
     four (G, T * k) in sorted (expert-major, stable) order: everything the
-    combine needs."""
+    combine needs.  A block of a longer group (a sequence split over
+    ranks) passes ``before`` (G, E), each expert's entries in the blocks
+    before it: an entry's rank in its expert counts them, so the block
+    keeps exactly what the whole group keeps; ``stride`` (>= C) is then
+    the slots an expert takes in x_exp and ``slot``."""
     G, T, d = x.shape
     k = idx.shape[-1]
     TK = T * k
@@ -119,15 +130,18 @@ def _group_dispatch(x, gates, idx, E: int, C: int):
     counts = torch.zeros((G, E), dtype=torch.int64, device=x.device)
     counts.scatter_add_(1, e_flat, torch.ones_like(e_flat))
     starts = torch.cumsum(counts, 1) - counts                   # exclusive
+    if before is not None:
+        starts = starts - before
     rank = torch.arange(TK, device=x.device)[None] - \
         torch.gather(starts, 1, e_s)
     keep = rank < C
-    slot = torch.where(keep, e_s * C + rank, torch.full_like(rank, E * C))
+    Cs = stride or C
+    slot = torch.where(keep, e_s * Cs + rank, torch.full_like(rank, E * Cs))
 
     rows = torch.arange(G, device=x.device)[:, None]
-    x_exp = torch.zeros((G, E * C + 1, d), dtype=x.dtype, device=x.device)
-    x_exp[rows, slot] = x[rows, t_s]                  # row E*C takes drops
-    return (x_exp[:, :-1].reshape(G, E, C, d), slot, keep, t_s,
+    x_exp = torch.zeros((G, E * Cs + 1, d), dtype=x.dtype, device=x.device)
+    x_exp[rows, slot] = x[rows, t_s]                  # the last row: drops
+    return (x_exp[:, :-1].reshape(G, E, Cs, d), slot, keep, t_s,
             torch.gather(g_flat, 1, order))
 
 
@@ -151,9 +165,46 @@ def _group_combine(y_exp, slot, keep, t_s, g_s, T: int, e0: int = 0):
     return y
 
 
-def moe_apply(p, x, cfg, tp: bool = False):
+def _split_experts(p, x, gates, idx, cfg, split):
+    """The experts of this rank's block of each batch row's tokens, a
+    sequence split over ranks (replicated weights).  Capacity is the whole
+    row's, C = capacity(S): one all-gather of each rank's per-expert
+    counts gives every rank the entries before its block, so it keeps and
+    drops exactly what the whole row does (:func:`_group_dispatch`).  Each
+    expert's C slots (padded to Cp, a multiple of the ranks) are split
+    into n blocks of Cp / n: every rank scatters its tokens into their
+    global slots, one all-to-all sends block j of every expert to rank j
+    (each slot has one owner, so the received blocks add exactly), the
+    grouped matmuls run on the rank's block, one all-gather returns the
+    blocks, and each rank combines its own tokens."""
+    B, T, d = x.shape
+    E, n = cfg.n_experts, split.n
+    C = capacity(split.length, cfg)
+    Cp = -(-C // n) * n
+    e_flat = idx.reshape(B, -1)
+    counts = torch.zeros((B, E), dtype=torch.int64, device=x.device)
+    counts.scatter_add_(1, e_flat, torch.ones_like(e_flat))
+    before = pctx.exclusive_prefix(
+        (counts,), split, lambda acc, c: c[0] if acc is None else acc + c[0])
+    x_exp, slot, keep, t_s, g_s = _group_dispatch(
+        x, gates, idx, E, C, torch.zeros_like(counts) if before is None
+        else before, Cp)
+    blocks = x_exp.reshape(B, E, n, Cp // n, d).permute(2, 1, 0, 3, 4)
+    mine = pctx.seq_exchange(blocks.contiguous(), split).sum(0)
+    xe = mine.reshape(E, B * (Cp // n), d)           # (E, B * Cp / n, d)
+    h = grouped_matmul(xe, p["gate"])
+    u = grouped_matmul(xe, p["up"])
+    ye = grouped_matmul(F.silu(h) * u, p["down"])
+    got = pctx.seq_gather(ye.reshape(E, B, Cp // n, d), split)
+    y_exp = got.permute(2, 1, 0, 3, 4).reshape(B, E, Cp, d)
+    return _group_combine(y_exp, slot, keep, t_s, g_s, T)
+
+
+def moe_apply(p, x, cfg, tp: bool = False, split=None):
     """x: (B, S, d) -> (y, aux_loss).  Grouped capacity dispatch (group =
-    batch row); with ``tp`` the expert stacks are this rank's shards."""
+    batch row); with ``tp`` the expert stacks are this rank's shards; with
+    a sequence ``split`` of more than one rank x is this rank's block of
+    each row (:func:`_split_experts`)."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.moe_top_k
 
@@ -174,6 +225,11 @@ def moe_apply(p, x, cfg, tp: bool = False):
         y = torch.einsum("ted,te->td", y_all, full_w)
         return y.reshape(B, S, d), aux
 
+    if split is not None and split.n > 1:
+        if tp:
+            raise ValueError("a sequence-split MoE has no tensor-parallel "
+                             "form (its weights are replicated)")
+        return _split_experts(p, x, gates, idx, cfg, split), aux
     C = capacity(S, cfg)
     x_exp, slot, keep, t_s, g_s = _group_dispatch(x, gates, idx, E, C)
     # (G, E, C, d) -> (E, G * C, d): one grouped matmul per projection

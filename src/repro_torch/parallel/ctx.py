@@ -21,6 +21,13 @@ JAX package's ``act_shard`` "seq" / "dmodel" calls are hints to GSPMD; see
     ``exchange`` (an all-to-all of column ranges whose backward is the
     reverse all-to-all: whole heads out of column shards, Mamba's x and z
     channel blocks paired).
+The sequence group (the axes a placed sequence is split over, read from
+a :class:`~repro_torch.parallel.sharding.SeqSplit`) has its own:
+``seq_max`` / ``seq_sum`` (all-reduces), ``seq_gather`` (an all-gather),
+``seq_last`` (the last rank's value, one broadcast), ``halo`` (the
+previous rank's last positions), ``exclusive_prefix`` (the ranks before
+this one folded in order) and ``seq_exchange`` (an all-to-all of equal
+blocks); none carries a gradient (serving).
 Under ``dp_all`` (fsdp_only) and on a 1-wide "model" axis there is no TP
 group (``tp_size() == 1``) and each of these is the identity.  Sums run in
 f32 and are rounded once to the input's dtype, as one GEMM's f32
@@ -265,13 +272,14 @@ def _words(x):
                                                  2 * x.shape[-1])
 
 
-def _all_to_all(rows, out_splits, in_splits):
+def _all_to_all(rows, out_splits, in_splits, group=None):
     """``rows`` (sum(in_splits), N) sent in blocks of ``in_splits`` rows to
-    the TP ranks in order; returns the (sum(out_splits), N) received."""
+    the ranks of ``group`` (default the TP ranks) in order; returns the
+    (sum(out_splits), N) received."""
     rows = rows.contiguous()
     out = rows.new_empty((sum(out_splits), rows.shape[1]))
     dist.all_to_all_single(_words(out), _words(rows), list(out_splits),
-                           list(in_splits), group=_tp_group())
+                           list(in_splits), group=group or _tp_group())
     return out
 
 
@@ -337,7 +345,117 @@ def exchange(x, have: list, want: list):
     return _Exchange.apply(x, (idx, send, recv))
 
 
+# ------------------------------------------------- the sequence group ----
+def seq_group(split):
+    """The process group of ``split``'s axes (a :class:`~repro_torch.
+    parallel.sharding.SeqSplit`): "model"'s, every axis's (the default
+    group) or a flattened sub-mesh's; None for one rank.  Cached in the
+    policy.  Its group ranks run in the split's index order, which is
+    checked: a mismatch raises."""
+    if split.n == 1:
+        return None
+    mesh = split.mesh
+    key = ("seq_group", id(mesh), split.axes)
+    cache = _POLICY if _POLICY is not None else {}
+    if key not in cache:
+        from torch._subclasses.fake_tensor import unset_fake_temporarily
+        if len(split.axes) == mesh.ndim:
+            group = dist.group.WORLD
+        elif len(split.axes) == 1:
+            group = mesh.get_group(split.axes[0])
+        else:
+            with unset_fake_temporarily():
+                group = mesh[split.axes]._flatten().get_group()
+        if dist.get_world_size(group) != split.n \
+                or dist.get_rank(group) != split.index:
+            raise RuntimeError(f"{split}: group rank {dist.get_rank(group)}"
+                               f" of {dist.get_world_size(group)}")
+        cache[key] = group
+    return cache[key]
+
+
+def seq_max(x, split):
+    """The elementwise max of ``x`` over the sequence group."""
+    if split.n == 1:
+        return x
+    t = x.detach().clone()
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=seq_group(split))
+    return t
+
+
+def seq_sum(x, split):
+    """``x`` summed over the sequence group: an f32 all-reduce, rounded
+    once to ``x``'s dtype."""
+    if split.n == 1:
+        return x
+    t = x.float() if x.dtype != torch.float32 else x.detach().clone()
+    dist.all_reduce(t, group=seq_group(split))
+    return t.to(x.dtype)
+
+
+def seq_gather(x, split):
+    """Every rank's ``x`` of the sequence group, stacked in index order:
+    (n, *x.shape), bit for bit."""
+    if split.n == 1:
+        return x[None]
+    src = x.detach().reshape(1, *x.shape).contiguous()
+    out = src.new_empty((split.n, *x.shape))
+    dist.all_gather_into_tensor(_words(out), _words(src),
+                                group=seq_group(split))
+    return out
+
+
+def seq_last(x, split):
+    """The last rank's ``x`` (the sequence's end), on every rank of the
+    group: one broadcast."""
+    if split.n == 1:
+        return x
+    t = x.detach().contiguous().clone()
+    dist.broadcast(_words(t), group=seq_group(split), group_src=split.n - 1)
+    return t
+
+
+def halo(x, k: int, split):
+    """The previous rank's last ``k`` positions of ``x`` (B, S_local, ...)
+    along dim 1: (B, k, ...), zeros on the first rank (the sequence's
+    start, as one process's zero padding)."""
+    tail = x[:, -k:]
+    if split.n == 1:
+        return torch.zeros_like(tail)
+    got = seq_gather(tail, split)
+    return got[split.index - 1] if split.index else torch.zeros_like(tail)
+
+
+def exclusive_prefix(xs: tuple, split, combine):
+    """The ranks before this one folded in index order: ``acc = None``, then
+    ``acc = combine(acc, rank j's xs)`` for j < index (one all-gather a
+    tensor of ``xs``).  None on the first rank."""
+    if split.index == 0:
+        if split.n > 1:                  # every rank joins the gathers
+            for x in xs:
+                seq_gather(x, split)
+        return None
+    got = [seq_gather(x, split) for x in xs]
+    acc = None
+    for j in range(split.index):
+        acc = combine(acc, tuple(g[j] for g in got))
+    return acc
+
+
+def seq_exchange(x, split):
+    """``x`` (n, ...): block j sent to rank j of the sequence group, in one
+    all-to-all; returns (n, ...), block j from rank j, bit for bit."""
+    if split.n == 1:
+        return x
+    rows = x.reshape(split.n, -1)
+    out = _all_to_all(rows, [1] * split.n, [1] * split.n,
+                      group=seq_group(split))
+    return out.reshape(x.shape)
+
+
 __all__ = ["active", "batch_mean", "constrain", "constrain_acts",
-           "copy_to_tp", "dp_all", "exchange", "exchange_plan", "gather_tp",
-           "max_tp", "policy", "reduce_from_tp", "reduce_tp", "set_policy",
+           "copy_to_tp", "dp_all", "exchange", "exchange_plan",
+           "exclusive_prefix", "gather_tp", "halo", "max_tp", "policy",
+           "reduce_from_tp", "reduce_tp", "seq_exchange", "seq_gather",
+           "seq_group", "seq_last", "seq_max", "seq_sum", "set_policy",
            "shards", "tp_rank", "tp_size"]

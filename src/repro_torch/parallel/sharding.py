@@ -28,6 +28,10 @@ from the JAX package:
     DTensor splits over mesh dims left to right, so each rank gets the
     chunk JAX's major-to-minor order gives it; a tuple out of the mesh's
     order has no DTensor counterpart and raises.
+Placed batches and caches are read, not gathered: :func:`local` gives
+this rank's shard and :func:`seq_split` which axes split its sequence,
+this rank's positions and the owner of a position; :func:`gather_local`
+is the weights' gather.
 """
 from __future__ import annotations
 
@@ -433,6 +437,72 @@ def gather_local(tree):
     return _map_with_path(one, tree), frozenset(split)
 
 
+class SeqSplit:
+    """How a placed leaf's sequence dim is split (``cache_specs`` puts it
+    over "model", or over every axis when the batch does not divide;
+    ``batch_specs(seq_over_model=True)`` over "model"): the mesh ``axes``
+    that split it (in the mesh's order, major to minor), the ``n`` ranks
+    over them, this rank's ``index`` among them (DTensor's chunk order),
+    and the dim's global ``length``.  Rank ``index`` holds positions
+    ``[lo, hi)``.  A plain tensor, or one not split there, is one rank
+    holding everything."""
+
+    def __init__(self, axes: tuple = (), n: int = 1, index: int = 0,
+                 length: int = 0, mesh=None):
+        if n > 1 and length % n:
+            raise ValueError(f"a sequence of {length} over {n} ranks")
+        self.axes, self.n, self.index, self.length = axes, n, index, length
+        self.mesh = mesh
+
+    @property
+    def block(self) -> int:
+        return self.length // self.n
+
+    @property
+    def lo(self) -> int:
+        return self.index * self.block
+
+    @property
+    def hi(self) -> int:
+        return self.lo + self.block
+
+    @property
+    def last(self) -> bool:
+        return self.index == self.n - 1
+
+    def owner(self, pos: int) -> int:
+        """The index of the rank holding position ``pos`` (clamped into
+        the sequence, as a cache write is)."""
+        return min(max(pos, 0), self.length - 1) // self.block
+
+    def __repr__(self) -> str:
+        return (f"SeqSplit(axes={self.axes}, n={self.n}, index={self.index}, "
+                f"length={self.length})")
+
+
+def seq_split(x, dim: int = 1) -> SeqSplit:
+    """The :class:`SeqSplit` of dim ``dim`` of ``x``, read from a DTensor's
+    placements and this rank's mesh coordinate; one rank for anything
+    else."""
+    if not is_dtensor(x):
+        return SeqSplit(length=int(x.shape[dim]))
+    from torch.distributed.tensor import Shard
+
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    dims = [i for i, pl in enumerate(x.placements)
+            if isinstance(pl, Shard) and pl.dim == dim and mesh.size(i) > 1]
+    if not dims:
+        return SeqSplit(length=int(x.shape[dim]))
+    coord = mesh.get_coordinate()
+    index, n = 0, 1
+    for i in dims:                       # major to minor, as DTensor chunks
+        index = index * mesh.size(i) + coord[i]
+        n *= mesh.size(i)
+    return SeqSplit(tuple(names[i] for i in dims), n, index,
+                    int(x.shape[dim]), mesh)
+
+
 def all_sum(t, tree):
     """``t`` summed over every rank when ``tree`` holds DTensors (one
     all-reduce, in place); ``t`` itself otherwise.  The meshes span the
@@ -443,7 +513,8 @@ def all_sum(t, tree):
     return t
 
 
-__all__ = ["MeshView", "P", "TP", "all_sum", "batch_ranks", "batch_specs",
-           "cache_specs", "data_axes", "distribute", "fit_spec", "gather",
-           "gather_local", "is_dtensor", "like", "local", "param_specs",
-           "place", "replicas", "to_placements", "to_shardings", "view"]
+__all__ = ["MeshView", "P", "SeqSplit", "TP", "all_sum", "batch_ranks",
+           "batch_specs", "cache_specs", "data_axes", "distribute",
+           "fit_spec", "gather", "gather_local", "is_dtensor", "like", "local",
+           "param_specs", "place", "replicas", "seq_split", "to_placements",
+           "to_shardings", "view"]

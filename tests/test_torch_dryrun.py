@@ -132,6 +132,42 @@ def test_small_mesh_cell_traces(arch, shape, tmp_path, monkeypatch,
         assert rec["cost"]["flops"] <= one["cost"]["flops"] / 8 * 1.01
 
 
+def gathered_trace(arch, shape, tmp_path):
+    """The cell traced on 4 x 1: every rank holds its 2 of the 8 rows
+    whole (the whole sequence, whole weights and caches), which is what
+    each rank of 4 x 2 computed while the serve steps gathered the
+    sequence-split batch and caches back whole."""
+    return DR.run_cell(arch, shape, "4x1", out_dir=tmp_path, verbose=False)
+
+
+@pytest.mark.parametrize("arch,shape,rank", [
+    ("yi-6b", "prefill_32k", 1),        # fsdp_only: the sequence split
+    ("qwen2.5-32b", "decode_32k", 1),   # TP weights over a split cache
+])
+def test_split_serve_cell_traces_the_busiest_rank(arch, shape, rank,
+                                                  tmp_path, monkeypatch,
+                                                  fake_group):
+    """A sequence-split serve cell on a 4 x 2 fake mesh (tiny config, batch
+    8, 64 tokens) is traced as the last rank of its sequence group at
+    data coordinate 0 (rank 1), and its FLOP and peak bytes are below the
+    same rows traced whole (:func:`gathered_trace`): the split prefill's
+    last block attends to both blocks but projects half the tokens; the
+    decode step runs half of every weight over half of the cache."""
+    cfg = configs.get_tiny_config(arch)
+    orig = configs.get_config
+    monkeypatch.setattr(configs, "get_config",
+                        lambda a: cfg if a == arch else orig(a))
+    sh = configs.SHAPES[shape]
+    monkeypatch.setitem(configs.SHAPES, shape,
+                        ShapeConfig(sh.name, 64, 8, sh.kind))
+    rec = DR.run_cell(arch, shape, "4x2", out_dir=tmp_path, verbose=False)
+    assert rec["traced_rank"] == rank
+    whole = gathered_trace(arch, shape, tmp_path)
+    assert whole["traced_rank"] == 0
+    assert 0 < rec["cost"]["flops"] < whole["cost"]["flops"]
+    assert rec["memory"]["peak_in_bytes"] < whole["memory"]["peak_in_bytes"]
+
+
 def jax_bytes_per_device(tree, specs, mesh) -> int:
     """The bytes one device holds of ``tree`` placed by ``specs``."""
     leaves = jax.tree.leaves(tree)

@@ -81,6 +81,28 @@ UNEVEN = {"10-2": dict(n_heads=10, n_kv_heads=2),
 PREFILL = dict(batch=2, seq=24, seed=3)
 FLOP_BOUND = 0.25 * 1.01
 CLI_STEPS = 3
+ARCHS = tuple(configs.ARCH_NAMES)
+FSDP_ONLY = tuple(a for a in ARCHS if configs.get_tiny_config(a).fsdp_only)
+#: decode: a one-process prefill of ``prompt`` tokens into a cache of
+#: ``max_len`` positions (divisible by 2 and 4 ranks), then ``steps`` steps
+#: whose writes land on two ranks' blocks (positions 10-12: ranks 0 and 1
+#: of 2, 1 and 2 of 4; rank 3's block holds no valid key yet)
+DECODE = dict(prompt=10, max_len=24, steps=3, seed=5, batch=2)
+#: decode on 1 x 4: qwen2.5-32b's uneven heads, the MoE's d_ff split,
+#: expert parallelism with Mamba channels, RWKV heads, and RWKV with 2
+#: heads on 4 ranks (the rule table leaves its state whole; each rank's
+#: columns cut a head)
+DECODE_1X4 = {"qwen2.5-32b-10-2": ("qwen2.5-32b", UNEVEN["10-2"]),
+              "grok-1-314b": ("grok-1-314b", {}),
+              "jamba-v0.1-52b": ("jamba-v0.1-52b", {}),
+              "rwkv6-3b": ("rwkv6-3b", {}),
+              "rwkv6-3b-2-heads": ("rwkv6-3b", dict(rwkv_head_size=32))}
+#: decode on 2 x 2 at B 2 (the batch over "data", the sequence over
+#: "model") and B 1 (the sequence over every axis)
+DECODE_2X2 = ("qwen2.5-32b", "jamba-v0.1-52b")
+SPLIT_1X4 = ("rwkv6-3b", "granite-moe-1b-a400m")
+#: tiny granite's capacity factor lowered until its prefill drops entries
+CAPACITY = 0.5
 
 WORKER = r'''
 import os, shutil, sys
@@ -100,8 +122,11 @@ from repro_torch._tree import leaves
 from repro_torch.data import SyntheticLM
 from repro_torch.launch import steps, train
 from repro_torch.launch.train import Trainer, get_cfg, parse_mesh
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from repro_torch.models import model as MD
+from repro_torch.models import moe as X
 from repro_torch.parallel import ctx as pctx
+from repro_torch.parallel import sharding as SH
 quiet = dict(log=lambda *a: None)
 
 
@@ -126,6 +151,72 @@ def prefill(tag, cfg, mesh):
     with torch.inference_mode(), pctx.policy(mesh):
         logits, cache = MD.apply_prefill(params, cfg, b)
     save(tag, {{"logits": logits, "cache": cache}})
+
+
+def whole(x, like, dims=(0,)):
+    """``x``, this rank's shard of a tensor split as ``like``'s dims
+    ``dims`` are (replicated elsewhere), gathered whole."""
+    pl = [p if isinstance(p, Shard) and p.dim in dims else Replicate()
+          for p in like.placements]
+    return DTensor.from_local(x, like.device_mesh, pl).full_tensor()
+
+
+def decode(tag, cfg, mesh, B):
+    """The one-process prefill of {dprompt} tokens into a cache of
+    {dmax}, placed by shard_cache, then {dsteps} decode steps on the
+    mesh: each step's logits and the cache at the end, gathered whole."""
+    params = MD.init_params(0, cfg, device="cpu")
+    b = MD.dummy_batch(cfg, B, {dprompt}, kind="prefill", gen={dseed},
+                       device="cpu")
+    with torch.inference_mode():
+        _, cache = MD.apply_prefill(params, cfg, b, max_len={dmax})
+    params = steps.shard_params(params, cfg, mesh, mode="decode")
+    cache = steps.shard_cache(cache, cfg, mesh, B)
+    logits = []
+    for t in range({dsteps}):
+        tb = MD.dummy_batch(cfg, B, 1, kind="prefill", gen={dseed} + 1 + t,
+                            device="cpu")
+        tb = SH.distribute(tb, SH.batch_specs(tb, mesh), mesh)
+        with torch.inference_mode(), pctx.policy(mesh):
+            lg, cache = MD.apply_decode(params, cfg, cache, tb,
+                                        {dprompt} + t)
+        logits.append(whole(lg, next(iter(tb.values()))))
+    save(tag, {{"logits": logits, "cache": [
+        {{k: v.full_tensor() for k, v in lc.items()}} for lc in cache]}})
+
+
+def sp_prefill(tag, cfg, mesh):
+    """The prefill with the batch's sequence over "model": the logits and
+    the cache gathered whole, and the MoE entries each rank dropped (as
+    (row, position, expert) of the whole sequence)."""
+    drops = []
+    dispatch = X._group_dispatch
+
+    def record(x, gates, idx, E, C, *rest):
+        out = dispatch(x, gates, idx, E, C, *rest)
+        e = torch.sort(idx.reshape(idx.shape[0], -1), stable=True)[0]
+        lo = pctx.tp_rank() * x.shape[1]
+        drops.extend((int(g), lo + int(out[3][g, j]), int(e[g, j]))
+                     for g, j in (~out[2]).nonzero().tolist())
+        return out
+    params = MD.init_params(0, cfg, device="cpu")
+    params = steps.shard_params(params, cfg, mesh, mode="prefill")
+    b = MD.dummy_batch(cfg, {batch}, {pseq}, kind="prefill", gen={pseed},
+                       device="cpu")
+    b = SH.distribute(b, SH.batch_specs(b, mesh, seq_over_model=True), mesh)
+    like = next(iter(b.values()))
+    X._group_dispatch = record
+    try:
+        with torch.inference_mode(), pctx.policy(mesh):
+            logits, cache = MD.apply_prefill(params, cfg, b)
+    finally:
+        X._group_dispatch = dispatch
+    got = [None] * dist.get_world_size()
+    dist.all_gather_object(got, drops)
+    save(tag, {{"logits": whole(logits, like), "drops": sorted(
+        d for r in got for d in r), "cache": [
+        {{k: whole(v, like, (0, 1) if k in ("k", "v") else (0,))
+          for k, v in lc.items()}} for lc in cache]}})
 
 
 if job == "four":
@@ -165,6 +256,16 @@ if job == "four":
         assert tr.restore_if_any() and tr.step == 4
         got[shape] = tr.run(8, 16, {seq}, ckpt_every=100, **quiet)
     save("elastic", {{"ref": ref, "got": got}})
+    for tag, (arch, replace) in {decode4!r}.items():
+        decode("decode-1x4-" + tag, get_cfg("tiny:" + arch).replace(
+            **replace), mesh, {dbatch})
+    for arch in {split4!r}:
+        sp_prefill("split-1x4-" + arch, get_cfg("tiny:" + arch), mesh)
+    mesh = parse_mesh("2x2")
+    for arch in {decode22!r}:
+        for B in (1, {dbatch}):
+            decode(f"decode-2x2-B{{B}}-{{arch}}", get_cfg("tiny:" + arch),
+                   mesh, B)
 if job == "eight":
     mesh = parse_mesh("4x2")
     for arch, batch in {cases!r}:
@@ -177,6 +278,13 @@ if job == "two":
          mesh, 8, "none")
     for arch, _ in {cases!r}:
         prefill(f"prefill-1x2-{{arch}}", get_cfg("tiny:" + arch), mesh)
+    for arch in {archs!r}:
+        decode("decode-1x2-" + arch, get_cfg("tiny:" + arch), mesh,
+               {dbatch})
+    for arch in {split2!r}:
+        sp_prefill("split-1x2-" + arch, get_cfg("tiny:" + arch), mesh)
+    sp_prefill("split-capacity", get_cfg("tiny:granite-moe-1b-a400m")
+               .replace(moe_capacity_factor={capacity}), mesh)
     text = StringIO()
     with redirect_stdout(text):
         train.main(["--arch", "tiny:qwen2.5-32b", "--mesh", "1x2",
@@ -198,7 +306,11 @@ def run_job(tmp: Path, job: str, world: int, timeout: int) -> Path:
     script.write_text(WORKER.format(
         src=SRC, cases=CASES, compress=COMPRESS, seq=SEQ, uneven=UNEVEN,
         batch=PREFILL["batch"], pseq=PREFILL["seq"], pseed=PREFILL["seed"],
-        cli_steps=CLI_STEPS, eps=EPS))
+        cli_steps=CLI_STEPS, eps=EPS, dprompt=DECODE["prompt"],
+        dmax=DECODE["max_len"], dsteps=DECODE["steps"],
+        dseed=DECODE["seed"], dbatch=DECODE["batch"], archs=ARCHS,
+        decode4=DECODE_1X4, decode22=DECODE_2X2, split2=FSDP_ONLY,
+        split4=SPLIT_1X4, capacity=CAPACITY))
     env = {**os.environ, "PYTHONPATH": SRC, "OMP_NUM_THREADS": "1"}
     procs = [subprocess.Popen(
         [sys.executable, str(script), str(r), str(world),
@@ -341,6 +453,109 @@ def test_tp_prefill_matches_one_process(jobs, shape, arch):
         for k in a:
             assert a[k].shape == b[k].shape, (i, k)
             close(a[k], b[k], f"layer {i} {k}")
+
+
+def assert_cache_close(got, want):
+    for i, (a, b) in enumerate(zip(got, want, strict=True)):
+        assert a.keys() == b.keys()
+        for k in a:
+            assert a[k].shape == b[k].shape, (i, k)
+            close(a[k], b[k], f"layer {i} {k}")
+
+
+@lru_cache(maxsize=None)
+def one_process_decode(arch: str, B: int, replace: tuple = ()):
+    """The worker's ``decode`` in one process: each step's logits and the
+    cache at the end."""
+    cfg = configs.get_tiny_config(arch).replace(**dict(replace))
+    params = MD.init_params(0, cfg, device="cpu")
+    b = MD.dummy_batch(cfg, B, DECODE["prompt"], kind="prefill",
+                       gen=DECODE["seed"], device="cpu")
+    logits = []
+    with torch.inference_mode():
+        _, cache = MD.apply_prefill(params, cfg, b,
+                                    max_len=DECODE["max_len"])
+        for t in range(DECODE["steps"]):
+            tb = MD.dummy_batch(cfg, B, 1, kind="prefill",
+                                gen=DECODE["seed"] + 1 + t, device="cpu")
+            lg, cache = MD.apply_decode(params, cfg, cache, tb,
+                                        DECODE["prompt"] + t)
+            logits.append(lg)
+    return logits, cache
+
+
+DECODE_CASES = ([("decode-1x2-" + a, a, DECODE["batch"], ())
+                 for a in ARCHS]
+                + [("decode-1x4-" + tag, arch, DECODE["batch"],
+                    tuple(sorted(rep.items())))
+                   for tag, (arch, rep) in DECODE_1X4.items()]
+                + [(f"decode-2x2-B{B}-{a}", a, B, ()) for a in DECODE_2X2
+                   for B in (1, DECODE["batch"])])
+
+
+@pytest.mark.parametrize("tag,arch,B,replace", DECODE_CASES,
+                         ids=[c[0] for c in DECODE_CASES])
+def test_split_decode_matches_one_process(jobs, tag, arch, B, replace):
+    """Decode on the decode rule table (weights tensor-parallel over
+    "model") over a cache placed by ``shard_cache`` (the KV sequence over
+    "model", or every axis at B 1; the scans' states by feature): every
+    step's logits and the cache after three steps, gathered, within 1e-5
+    of their scale of one process's."""
+    got = result(jobs, tag)
+    logits, cache = one_process_decode(arch, B, replace)
+    assert len(got["logits"]) == len(logits) == DECODE["steps"]
+    for a, b in zip(got["logits"], logits):
+        assert a.shape == b.shape
+        close(a, b, "logits")
+    assert_cache_close(got["cache"], cache)
+
+
+@pytest.mark.parametrize("tag,arch", [("split-1x2-" + a, a)
+                                      for a in FSDP_ONLY]
+                         + [("split-1x4-" + a, a) for a in SPLIT_1X4])
+def test_sequence_split_prefill_matches_one_process(jobs, tag, arch):
+    """The fsdp_only configs' prefill with the batch's sequence over
+    "model" (replicated weights): the last logits, and the cache gathered
+    (KV over the ranks' positions, the RWKV states and last tokens the
+    sequence's end), within 1e-5 of their scale of one process's."""
+    got = result(jobs, tag)
+    logits, cache = one_process_prefill(arch)
+    close(got["logits"], logits, "logits")
+    assert torch.equal(got["logits"].argmax(-1), logits.argmax(-1))
+    assert_cache_close(got["cache"], cache)
+
+
+def test_sequence_split_prefill_keeps_the_whole_rows_capacity(jobs):
+    """Tiny granite with its capacity factor lowered: one process drops
+    entries (capacity is the whole row's, C = capacity(S)); the prefill
+    split over two ranks drops exactly the same (row, position, expert)
+    entries and equals the one-process prefill."""
+    from repro_torch.models import moe as X
+    cfg = configs.get_tiny_config("granite-moe-1b-a400m").replace(
+        moe_capacity_factor=CAPACITY)
+    drops = []
+    dispatch = X._group_dispatch
+
+    def record(x, gates, idx, E, C, *rest):
+        out = dispatch(x, gates, idx, E, C, *rest)
+        e = torch.sort(idx.reshape(idx.shape[0], -1), stable=True)[0]
+        drops.extend((int(g), int(out[3][g, j]), int(e[g, j]))
+                     for g, j in (~out[2]).nonzero().tolist())
+        return out
+    params = MD.init_params(0, cfg, device="cpu")
+    b = MD.dummy_batch(cfg, PREFILL["batch"], PREFILL["seq"], kind="prefill",
+                       gen=PREFILL["seed"], device="cpu")
+    X._group_dispatch = record
+    try:
+        with torch.inference_mode():
+            logits, cache = MD.apply_prefill(params, cfg, b)
+    finally:
+        X._group_dispatch = dispatch
+    got = result(jobs, "split-capacity")
+    assert drops, "the one-process prefill drops no entry"
+    assert got["drops"] == sorted(drops)
+    close(got["logits"], logits, "logits")
+    assert_cache_close(got["cache"], cache)
 
 
 def test_cli_on_two_model_ranks_matches_one_process(jobs):

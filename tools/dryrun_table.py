@@ -4,10 +4,10 @@
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both
     PYTHONPATH=src python -m repro_torch.roofline.analysis --mesh single
     PYTHONPATH=src python -m repro_torch.roofline.analysis --mesh multi
-    PYTHONPATH=src python3 tools/dryrun_table.py [ARCH ...]
+    PYTHONPATH=src python3 tools/dryrun_table.py [ARCH ...] [--shape S ...]
 
 One row a cell (every applicable (arch x shape) of ``configs.all_cells``,
-or of the archs named),
+or of the archs and shapes named),
 each value "single / multi" (the 16 x 16 and 2 x 16 x 16 meshes): per
 device the argument and peak GB, the FLOP, the collective GB by kind
 (all-gather / all-reduce / reduce-scatter) from ``experiments/
@@ -58,12 +58,14 @@ def row(arch: str, shape: str) -> str:
 
 
 def main(argv=None) -> int:
-    archs = sys.argv[1:] if argv is None else argv
+    words = sys.argv[1:] if argv is None else list(argv)
+    shapes = words[words.index("--shape") + 1:] if "--shape" in words else []
+    archs = words[:words.index("--shape")] if "--shape" in words else words
     print("| arch | shape | args GB | peak GB | FLOP | collective GB "
           "| compute s | memory s | coll. s | dominant | useful |")
     print("|" + "---|" * 11)
     for arch, shape, _, _ in configs.all_cells():
-        if not archs or arch in archs:
+        if (not archs or arch in archs) and (not shapes or shape in shapes):
             print(row(arch, shape))
     return 0
 
