@@ -146,8 +146,16 @@ prints one JSON line per phase:
                  int8 compression), ``train_hybrid`` (jamba cut to its
                  first two layers, Mamba + MLP and Mamba + 16-expert MoE,
                  grad_accum 1), ``train_rwkv`` (rwkv6-3b cut to 8
-                 layers) and ``train_stablelm`` (stablelm-12b cut to 4
-                 layers, head dim 160, int8 compression, grad_accum 1).
+                 layers), ``train_stablelm`` (stablelm-12b cut to 4
+                 layers, head dim 160, int8 compression, grad_accum 1),
+                 ``train_audio`` (musicgen-medium whole, 48 layers, 24
+                 heads of 64, int8) and ``train_vlm`` (qwen2-vl-2b whole,
+                 28 layers, 12 / 2 heads of 128, int8), both from their
+                 embeddings frontend, qwen2-vl's batches with M-RoPE
+                 positions of a 16 x 16 patch grid then text
+                 (``mrope_grid``), and step 1's quantize launches held bit
+                 for bit against plain and their round trip within the
+                 reference's bound (``round_trip_quantize``).
                  Each first emits ``<phase>_gates``, on their own
                  weights: one step's loss and whole gradient in f32
                  compute with the kernels against every kernel replaced by
@@ -170,6 +178,14 @@ prints one JSON line per phase:
                  times the raw-launch ms there), the compression's ms, and
                  one layer's plain scan backward (wall ms and, from
                  ``torch.profiler``, its device ms);
+  7b'. prefill_embeds — musicgen-medium and qwen2-vl-2b whole, random f32
+                 weights, bf16 compute: 2 x 1,024 prompt embeddings (qwen2-vl
+                 with the patch-grid positions) through ``apply_prefill``,
+                 then 8 ``apply_decode`` steps of (2, 1, d) embeddings:
+                 exactly one flash launch a layer in the prefill (48, 28)
+                 and none in decode, every call's logits within 3e-2 of
+                 their scale against the same calls with the kernel's plain
+                 version, the kernel against plain on its first inputs;
   7c. the mesh (``launch/mesh.py``, ``parallel/``, ``Trainer(mesh=...)``):
      mesh_train    — a NCCL process group of one rank (a ``FileStore`` in a
                  temporary directory; no fallback when NCCL cannot start)
@@ -247,6 +263,15 @@ prints one JSON line per phase:
                  train_4k; prints each record's per-device argument and
                  peak GB, FLOP, bytes accessed, collective GB and counts,
                  the roofline terms and the wall seconds;
+  7e. examples     — the seven walkthroughs of ``examples/torch/``, each run
+                 as a user runs it (no arguments: cuda:0) in a process of
+                 its own (this script with ``--example``), all started
+                 together beside the dry run: each to exit 0 with its own
+                 assertions, having launched exactly its kernels
+                 (``EXAMPLE_KERNELS``; ``vpc_chain`` 6 fused datapath
+                 launches and 1 ChaCha20, printing its bit-exact line);
+                 their wall seconds, launches and output (also in
+                 ``chiprun_out/examples/``);
   8. the ``{"kernels": [...]}`` line: per kernel (all eight) its launches
      on each path that ran it, each counted from 0 just before the path's
      run (``launches_by_path``; ``launches`` their sum), time, plain time,
@@ -477,13 +502,47 @@ TRAIN_SEED = 16
 #: rounding of the scan alone moves the gradient by 8.3e-4 relative L2 (a
 #: plain route with the scan in f64 against the f32 one), above the gate's
 #: 1e-4, and by 3.6e-6 through 2 (PERF.md section 6); the 8 layers are
-#: held to twice that spread instead
+#: held to twice that spread instead.  The two embeddings-frontend
+#: configs run whole with int8: musicgen-medium (48 LayerNorm + GELU
+#: layers, 24 heads of 64, 1.36 B parameters in 485 tensors) and
+#: qwen2-vl-2b (28 layers, 12 / 2 heads of 128 with M-RoPE, an untied
+#: 151,936 x 1,536 head: 1.54 B in 255 tensors); five f32 copies ~27 and
+#: ~31 GB
 TRAIN_FAMILIES = {
     "train_moe": ("granite-moe-1b-a400m", None, "int8", None),
     "train_hybrid": ("jamba-v0.1-52b", 2, "none", None),
     "train_rwkv": ("rwkv6-3b", 8, "none", 2),
     "train_stablelm": ("stablelm-12b", 4, "int8", None),
+    "train_audio": ("musicgen-medium", None, "int8", None),
+    "train_vlm": ("qwen2-vl-2b", None, "int8", None),
 }
+#: the family phases whose Trainer run holds step 1's quantize launches
+#: (one a parameter tensor) bit for bit against the plain version and
+#: their int8 round trip within the reference's bound
+#: (``tests/test_kernels.py::test_quantize_property``: |dequant(quant(x))
+#: - x| <= max|row| / 254 * 1.05 + 1e-5)
+ROUND_TRIP_PHASES = ("train_audio", "train_vlm")
+#: an M-RoPE config's batches (train and prefill): each row an image then
+#: text, as Qwen2-VL numbers them; the first 16 x 16 positions a patch
+#: grid (t constant, h the row, w the column), the text then from the
+#: grid's largest index + 1 on all three
+MROPE_GRID = (16, 16)
+#: the embeddings-frontend serve path: each config of PREFILL_EMBEDS whole,
+#: random f32 weights from PE_SEED, bf16 compute; PE_B x PE_S prompt
+#: embeddings through ``apply_prefill`` into a cache of PE_S + PE_STEPS
+#: positions, then PE_STEPS ``apply_decode`` steps of (PE_B, 1, d)
+#: embeddings (M-RoPE: all three indices the cache position, the JAX
+#: package's decode convention): every step's logits within
+#: TP_LOGITS_TOL of their scale against the same calls with every
+#: kernel's plain version
+PREFILL_EMBEDS = ("musicgen-medium", "qwen2-vl-2b")
+PE_B, PE_S, PE_STEPS, PE_SEED = 2, 1024, 8, 27
+#: the walkthroughs, each run on cuda:0 as a user runs it, in a process
+#: of its own (this script with ``--example``), all at once and beside the
+#: host-only dry run; their launches counted from 0 in each process
+EXAMPLES = ("quickstart", "vpc_chain", "multi_tenant", "sharded_rack",
+            "fault_tolerance", "disaggregated_kv", "serve_e2e")
+EXAMPLE_TIMEOUT_S = 600
 #: the mesh phases: the sharded Trainer on a NCCL group of one rank and a
 #: 1 x 1 mesh, qwen3-8b at full width cut to MESH_LAYERS layers, int8,
 #: TRAIN_B x TRAIN_S, TRAIN_STEPS steps, against the same run without a
@@ -3822,6 +3881,71 @@ def scan_backward_ms(dev, cfg, profiled_segments: int = 4) -> dict:
             "profiled_steps": steps, "device_busy_share": busy / wall}
 
 
+def mrope_grid(B: int, S: int) -> np.ndarray:
+    """(3, B, S) int32 M-RoPE positions of MROPE_GRID's image then text in
+    every row: the grid's gh x gw positions (t 0, h the row, w the column),
+    then the text from max(gh, gw) on all three."""
+    gh, gw = MROPE_GRID
+    n = gh * gw
+    pos = np.zeros((3, B, S), np.int32)
+    pos[1, :, :n] = np.arange(n) // gw
+    pos[2, :, :n] = np.arange(n) % gw
+    pos[:, :, n:] = max(gh, gw) + np.arange(S - n)
+    return pos
+
+
+def synthetic_lm(cfg):
+    """The train phases' data source: ``data.SyntheticLM``, whose batches
+    for an M-RoPE config also carry :func:`mrope_grid` positions."""
+    from repro_torch.data import SyntheticLM
+    if not cfg.mrope_sections:
+        return SyntheticLM
+
+    class GridLM(SyntheticLM):
+        def host_batch(self, step: int) -> dict:
+            return {**super().host_batch(step),
+                    "positions": mrope_grid(self.B, self.S)}
+    return GridLM
+
+
+def round_trip_quantize(n_checked: int, seen: dict):
+    """``optim.compress``'s quantize for a train run: each of its first
+    ``n_checked`` launches (step 1's, one a parameter tensor) held bit for
+    bit against the plain version on the same input, and the plain
+    dequantize of its q and scale within the reference's bound of that
+    input (ROUND_TRIP_PHASES); later launches pass through.  The checks
+    launch nothing; ``seen`` collects the launches checked, the largest
+    error over its bound and the largest row."""
+    import torch
+
+    from repro_torch.kernels.quantize import (dequantize_int8_ref,
+                                              quantize_int8_ref)
+    from repro_torch.optim import compress as C
+    kernel = C.quantize
+    seen.update(checked=0, max_err_over_bound=0.0, largest_row=0)
+
+    def quantize(x):
+        q, s = kernel(x)
+        if seen["checked"] < n_checked:
+            qr, sr = quantize_int8_ref(x)
+            expect(torch.equal(q, qr) and torch.equal(s, sr),
+                   f"quantize_int8 launch {seen['checked']} of step 1 "
+                   f"{tuple(x.shape)} differs from plain")
+            del qr, sr
+            err = (dequantize_int8_ref(q, s) - x).abs_()
+            bound = x.abs().amax(-1, keepdim=True) / 254.0 * 1.05 + 1e-5
+            ratio = float(err.div_(bound).max())
+            expect(ratio <= 1.0, f"int8 round trip of launch "
+                   f"{seen['checked']} {tuple(x.shape)} at {ratio} of the "
+                   "reference's bound")
+            seen.update(checked=seen["checked"] + 1,
+                        max_err_over_bound=max(seen["max_err_over_bound"],
+                                               ratio),
+                        largest_row=max(seen["largest_row"], x.shape[-1]))
+        return q, s
+    return quantize
+
+
 def family_train_path(dev, card: Card, phase: str, profile: bool = False):
     """A family train phase (``TRAIN_FAMILIES``): its gates (emitted as
     their own record), then the Trainer at full width with the layer cut,
@@ -3835,8 +3959,8 @@ def family_train_path(dev, card: Card, phase: str, profile: bool = False):
 
     from repro_torch._tree import leaves
     from repro_torch.configs import get_config
-    from repro_torch.data import SyntheticLM
     from repro_torch.launch import train
+    from repro_torch.optim import compress as C
 
     arch, n_layers, compress, gate_layers = TRAIN_FAMILIES[phase]
     full = get_config(arch)
@@ -3847,8 +3971,8 @@ def family_train_path(dev, card: Card, phase: str, profile: bool = False):
     if cfg.grad_accum != 1:
         reduced["grad_accum"] = f"{cfg.grad_accum} -> 1"
         cfg = cfg.replace(grad_accum=1)
-    batch = SyntheticLM(cfg, TRAIN_B, TRAIN_S, seed=TRAIN_SEED,
-                        device=dev).batch(0)
+    data = synthetic_lm(cfg)
+    batch = data(cfg, TRAIN_B, TRAIN_S, seed=TRAIN_SEED, device=dev).batch(0)
     t0 = time.perf_counter()
     gates = {"layers": cfg.n_layers}
     if gate_layers is not None:
@@ -3879,10 +4003,16 @@ def family_train_path(dev, card: Card, phase: str, profile: bool = False):
     def log(line: str) -> None:             # after each step's logging sync
         ends.append(time.perf_counter())
         lines.append(line)
+    round_trip: dict = {}
+    checks = [(train, {"SyntheticLM": data})]
+    if phase in ROUND_TRIP_PHASES:
+        checks.append((C, {"quantize": round_trip_quantize(n_leaves,
+                                                           round_trip)}))
     torch.cuda.synchronize()
     start = time.perf_counter()
-    losses = tr.run(TRAIN_STEPS, TRAIN_B, TRAIN_S, seed=TRAIN_SEED,
-                    log_every=1, log=log)
+    with patched_all(checks):
+        losses = tr.run(TRAIN_STEPS, TRAIN_B, TRAIN_S, seed=TRAIN_SEED,
+                        log_every=1, log=log)
     launches = {name: k.launches for name, k in kernels.items()}
     shapes = {name: dict(kernels[name].shapes) for name in
               ("moe_gmm", "mamba_ssm", "rwkv6_wkv", "flash_attention")}
@@ -3925,6 +4055,14 @@ def family_train_path(dev, card: Card, phase: str, profile: bool = False):
         "mfu": flop / median_s / PEAK_FLOPS["torch.bfloat16"],
         "max_memory_gb": peak / 1e9,
         "launches": launches, "launches_per_step": per_step}
+    if cfg.frontend != "tokens":
+        record["frontend"] = cfg.frontend
+    if cfg.mrope_sections:
+        record["mrope_grid"] = list(MROPE_GRID)
+    if round_trip:
+        expect(round_trip["checked"] == n_leaves, f"{phase}: step 1 checked "
+               f"{round_trip['checked']} quantize launches of {n_leaves}")
+        record["step1_quantize_round_trip"] = round_trip
     if compress != "none":
         comp_ms = compress_ms(tr)
         record["compress_ms_per_step"] = comp_ms
@@ -3934,10 +4072,11 @@ def family_train_path(dev, card: Card, phase: str, profile: bool = False):
         # a scan phase's step is ~180,000 device events a layer, which the
         # profiler takes minutes to gather: its breakdown is the scan
         # backward's below (one layer, profiled over 256 steps)
-        record["profile"] = profile_run(
-            lambda: tr.run(tr.step + 1, TRAIN_B, TRAIN_S, seed=TRAIN_SEED,
-                           log=lambda *_: None),
-            f"chip_smoke_profile_{phase}.txt")
+        with patched(train, SyntheticLM=data):
+            record["profile"] = profile_run(
+                lambda: tr.run(tr.step + 1, TRAIN_B, TRAIN_S,
+                               seed=TRAIN_SEED, log=lambda *_: None),
+                f"chip_smoke_profile_{phase}.txt")
     w_dtype = torch.float32 if compress != "none" else \
         getattr(torch, cfg.compute_dtype)
     del tr
@@ -3955,6 +4094,112 @@ def family_train_path(dev, card: Card, phase: str, profile: bool = False):
         record["scan_backward"] = bwd
     free_device()
     return record, launches, at
+
+
+# ------------------------------------ 7b'. the embeddings frontend -----
+def embeds_decode(params, cfg, embeds, steps: list, positions) -> list:
+    """``apply_prefill`` of the prompt embeddings (with ``positions`` where
+    given) into a cache of S + len(steps) positions, then one
+    ``apply_decode`` per (B, 1, d) of ``steps``: each call's logits."""
+    from repro_torch.models import model as MD
+    batch = {"embeds": embeds}
+    if positions is not None:
+        batch["positions"] = positions
+    S = embeds.shape[1]
+    logits, cache = MD.apply_prefill(params, cfg, batch,
+                                     max_len=S + len(steps))
+    out = [logits]
+    for i, x in enumerate(steps):
+        logits, cache = MD.apply_decode(params, cfg, cache, {"embeds": x},
+                                        S + i)
+        out.append(logits)
+    return out
+
+
+def prefill_embeds_path(dev) -> tuple[dict, dict]:
+    """The ``prefill_embeds`` phase: each config of PREFILL_EMBEDS whole,
+    random f32 weights, bf16 compute, PE_B x PE_S prompt embeddings (and
+    for an M-RoPE config :func:`mrope_grid` positions) through
+    ``models.model.apply_prefill``, then PE_STEPS ``apply_decode`` steps;
+    exactly one flash launch a layer in the prefill and none in decode;
+    every call's logits within TP_LOGITS_TOL of their scale against the
+    same calls with the attention kernel's plain version; the kernel
+    against its plain version on the first inputs the prefill gave it.
+    Returns the record and the launches."""
+    import torch
+
+    from repro_torch._tree import leaves
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention_cuda)
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import init_params
+
+    t0 = time.perf_counter()
+    runs, total = [], 0
+    for arch in PREFILL_EMBEDS:
+        cfg = get_config(arch)
+        params = init_params(PE_SEED, cfg, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(PE_SEED)
+        embeds = torch.randn((PE_B, PE_S, cfg.d_model), generator=gen,
+                             device=dev)
+        steps = [torch.randn((PE_B, 1, cfg.d_model), generator=gen,
+                             device=dev) for _ in range(PE_STEPS)]
+        positions = (torch.from_numpy(mrope_grid(PE_B, PE_S)).to(dev)
+                     if cfg.mrope_sections else None)
+        seen: dict = {}
+        calls: list = []
+        flash_attention_cuda.launches = 0    # this run's count starts here
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with torch.no_grad(), patched_all(capturing(split_kernels(), seen,
+                                                    calls)):
+            got = embeds_decode(params, cfg, embeds, steps, positions)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t1
+        launches = flash_attention_cuda.launches
+        peak = torch.cuda.max_memory_allocated()
+        expect(launches == cfg.n_layers and calls == [True] * cfg.n_layers,
+               f"prefill_embeds {arch}: {launches} flash launches "
+               f"(causal {calls}), expected one a layer, {cfg.n_layers}, "
+               "in the prefill and none in decode")
+        with torch.no_grad(), patched(fa_ops,
+                                      flash_attention_cuda=attention_ref):
+            want = embeds_decode(params, cfg, embeds, steps, positions)
+        expect(flash_attention_cuda.launches == launches,
+               f"prefill_embeds {arch}: the plain route launched the kernel")
+        errs = []
+        for i, (g, w) in enumerate(zip(got, want, strict=True)):
+            expect(g.shape == (PE_B, cfg.vocab_size) and
+                   bool(torch.isfinite(g).all()),
+                   f"prefill_embeds {arch} call {i}: logits {tuple(g.shape)}")
+            err, scale = scaled_err(g, w)
+            errs.append(err / scale)
+            expect(err <= TP_LOGITS_TOL * scale,
+                   f"prefill_embeds {arch} call {i} (0 = prefill): logits "
+                   f"differ from the plain route by {err} of scale {scale}")
+        runs.append({
+            "arch": arch, "layers": cfg.n_layers, "d_model": cfg.d_model,
+            "heads": [cfg.n_heads, cfg.n_kv_heads], "hd": cfg.hd,
+            "frontend": cfg.frontend,
+            "mrope_grid": list(MROPE_GRID) if cfg.mrope_sections else None,
+            "params": sum(x.numel() for x in leaves(params)),
+            "batch": PE_B, "prompt": PE_S, "decode_steps": PE_STEPS,
+            "compute_dtype": cfg.compute_dtype,
+            "flash_launches_per_prefill": launches,
+            "logits_rel_err_per_call": errs,
+            "max_logits_rel_err": max(errs), "tol": TP_LOGITS_TOL,
+            "seconds_prefill_and_decode": seconds,
+            "max_memory_gb": peak / 1e9,
+            "kernels_vs_plain": kernels_vs_plain(
+                split_kernels(), seen, f"prefill_embeds {arch}")})
+        total += launches
+        del params, embeds, steps, got, want, seen
+        free_device()
+    return ({"phase": "prefill_embeds", "runs": runs,
+             "seconds": time.perf_counter() - t0},
+            {"flash_attention": total})
 
 
 # ------------------------------------------------------- 7c. the mesh -----
@@ -5064,6 +5309,160 @@ def dryrun_path() -> dict:
 
 
 
+# ------------------------------------------------------ 7e. examples -----
+#: the kernels each walkthrough launches on the card (every other stays at
+#: 0): the fused chain of the compute backend, the round trip's ChaCha20,
+#: flash attention in training and prefill
+EXAMPLE_KERNELS = {"vpc_chain": {"vpc_datapath", "chacha20_xor"},
+                   "multi_tenant": {"vpc_datapath"},
+                   "quickstart": {"flash_attention"},
+                   "fault_tolerance": {"flash_attention"},
+                   "serve_e2e": {"flash_attention"},
+                   "sharded_rack": set(), "disaggregated_kv": set()}
+
+
+#: the walkthroughs' datapath launches (packets, rules): vpc_chain's batch
+#: of 4,096 against 32 rules; multi_tenant's dispatch groups against 16
+#: rules, three heavy 64-packet batches (its bucket of 256) and one light
+#: batch (64), 10 launches each
+EXAMPLE_VPC_SHAPES = ((4096, 32), (256, 16), (64, 16))
+
+
+def example_kernel_shapes(card: Card) -> dict:
+    """``vpc_datapath`` at EXAMPLE_VPC_SHAPES and ``chacha20_xor`` at
+    vpc_chain's 4,096 blocks, on random inputs: bit-exact against the
+    plain version, raw-launch ms, bound and plain ms."""
+    from repro_torch.kernels.chacha20.kernel import (chacha20_xor_cuda,
+                                                     chacha20_xor_plain)
+    from repro_torch.kernels.vpc_datapath.kernel import (vpc_datapath_cuda,
+                                                         vpc_datapath_plain)
+    rng = np.random.default_rng(28)
+    out = {}
+    for n, r in EXAMPLE_VPC_SHAPES:
+        a = vpc_inputs(rng, n, r, "cuda")
+        got = vpc_datapath_cuda(**a)
+        expect(same_triple(got, vpc_datapath_plain(**a)),
+               f"vpc_datapath differs from plain at ({n}, {r})")
+        bound, by, _, _ = vpc_bound(card, n, r, int(got[0].sum()))
+        out[f"vpc_datapath N={n} R={r}"] = {
+            "ms": cuda_ms(raw_vpc(a), 200), "bound_ms": bound, "bound_by": by,
+            "plain_ms": cuda_ms(lambda: vpc_datapath_plain(**a), 3)}
+    n = EXAMPLE_VPC_SHAPES[0][0]
+    blocks = u32(rng, (n, 16)).to("cuda")
+    key, nonce = u32(rng, (8,)).to("cuda"), u32(rng, (3,)).to("cuda")
+    expect(max_abs_err((chacha20_xor_cuda(blocks, key, nonce, 1),),
+                       (chacha20_xor_plain(blocks, key, nonce, 1),)) == 0,
+           f"chacha20_xor differs from plain at {n} blocks")
+    bound, by = card.bound(n * 128 + 11 * 4, n * CHACHA_OPS_PER_BLOCK)
+    out[f"chacha20_xor N={n}"] = {
+        "ms": cuda_ms(raw_chacha(blocks, key, nonce, 1), 200),
+        "bound_ms": bound, "bound_by": by,
+        "plain_ms": cuda_ms(lambda: chacha20_xor_plain(blocks, key, nonce, 1),
+                            3)}
+    return out
+
+
+def all_kernels() -> dict:
+    """Every kernel wrapper of the port, by its kernels-line name."""
+    from repro_torch.kernels.chacha20.kernel import chacha20_xor_cuda
+    from repro_torch.kernels.vpc_datapath.kernel import vpc_datapath_cuda
+    return {"vpc_datapath": vpc_datapath_cuda,
+            "chacha20_xor": chacha20_xor_cuda, **train_kernels()}
+
+
+def example_worker(name: str) -> int:
+    """One walkthrough of EXAMPLES run as a user runs it (``python3
+    examples/torch/<name>.py``: no arguments, so on cuda:0), every
+    kernel's launches counted from 0; then one JSON line of them."""
+    import runpy
+
+    import torch
+    kernels = all_kernels()
+    for k in kernels.values():
+        k.launches = 0
+    path = Path(__file__).resolve().parent / "examples" / "torch" / \
+        f"{name}.py"
+    sys.argv = [str(path)]
+    t0 = time.perf_counter()
+    runpy.run_path(str(path), run_name="__main__")
+    torch.cuda.synchronize()
+    print(json.dumps({"example": name, "seconds": time.perf_counter() - t0,
+                      "launches": {n: k.launches
+                                   for n, k in kernels.items()}}),
+          flush=True)
+    return 0
+
+
+def examples_start(tmp: str) -> dict:
+    """Every walkthrough of EXAMPLES started at once, each in a process of
+    its own (this script with ``--example``), its output to a file in
+    ``tmp``: name -> (process, output file, start time)."""
+    started = {}
+    for name in EXAMPLES:
+        out = open(Path(tmp) / f"example_{name}.txt", "w")
+        started[name] = (subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--example",
+             name], stdout=out, stderr=subprocess.STDOUT, text=True),
+            out, time.perf_counter())
+    return started
+
+
+def examples_finish(started: dict) -> tuple[dict, dict]:
+    """The ``examples`` phase: waits for the walkthroughs started by
+    :func:`examples_start` (EXAMPLE_TIMEOUT_S at most, then every one
+    still running is killed), each to exit 0 having launched exactly the
+    kernels of EXAMPLE_KERNELS, ``vpc_chain`` printing its bit-exact line;
+    each one's seconds (its run in its process, from the worker), launches
+    and output (also in ``chiprun_out/examples/``).  The wait starts after
+    the dry run, so ``all_exited_by_s`` (from the start) bounds the
+    slowest one's wall from above.  Returns the record and the launches
+    summed over the walkthroughs."""
+    t0 = min(t for _, _, t in started.values())
+    walls: dict = {}
+    try:
+        while len(walls) < len(started) and \
+                time.perf_counter() - t0 < EXAMPLE_TIMEOUT_S:
+            for name, (p, _, t) in started.items():
+                if name not in walls and p.poll() is not None:
+                    walls[name] = time.perf_counter() - t
+            time.sleep(0.2)
+    finally:
+        for p, out, _ in started.values():
+            p.kill()
+            p.wait()
+            out.close()
+    keep = Path("chiprun_out") / "examples"
+    keep.mkdir(parents=True, exist_ok=True)
+    runs, total = {}, {}
+    for name, (p, out, _) in started.items():
+        text = Path(out.name).read_text()
+        (keep / f"{name}.txt").write_text(text)
+        expect(name in walls and p.returncode == 0,
+               f"example {name}: exit {p.returncode}: {text[-3000:]}")
+        lines = text.splitlines()
+        last = json.loads(next(ln for ln in reversed(lines)
+                               if ln.startswith('{"example": ')))
+        launches = last["launches"]
+        ran = {k for k, n in launches.items() if n}
+        expect(ran == EXAMPLE_KERNELS[name], f"example {name} launched "
+               f"{launches}, expected {sorted(EXAMPLE_KERNELS[name])}")
+        if name == "vpc_chain":
+            expect(any(ln.startswith("bit-exact    : matches vpc_chain")
+                       for ln in lines), "vpc_chain printed no bit-exact line")
+            expect(launches["vpc_datapath"] == 6 and
+                   launches["chacha20_xor"] == 1,
+                   f"vpc_chain: 6 fused runs and one decryption, {launches}")
+        runs[name] = {"seconds": last["seconds"], "exit": p.returncode,
+                      "launches": {k: n for k, n in launches.items() if n},
+                      "stdout_lines": len(lines) - 1}
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+    return ({"phase": "examples", "device": "cuda:0", "runs": runs,
+             "beside": "dryrun",
+             "longest_s": max(r["seconds"] for r in runs.values()),
+             "all_exited_by_s": max(walls.values())}, total)
+
+
 def with_paths(line: dict, by_path: dict, at: dict) -> dict:
     """A kernels-line entry with the launches of every path that ran the
     kernel (``launches_by_path``, each counted from 0 just before its
@@ -5095,6 +5494,8 @@ def main() -> int:
         i = sys.argv.index("--tp-worker")
         job, rank, rdv, tmp = sys.argv[i + 1:i + 5]
         return tp_worker(job, int(rank), rdv, tmp)
+    if "--example" in sys.argv:
+        return example_worker(sys.argv[sys.argv.index("--example") + 1])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
               file=sys.stderr)
@@ -5226,6 +5627,11 @@ def main() -> int:
             at.setdefault(name, {})[phase] = line
         del record
         free_device()
+    record, launches = prefill_embeds_path(dev)
+    emit(record)
+    by_path.setdefault("flash_attention", {})["prefill_embeds"] = \
+        launches["flash_attention"]
+    free_device()
 
     import tempfile
     with tempfile.TemporaryDirectory() as tmp:
@@ -5252,10 +5658,29 @@ def main() -> int:
             for name, n in launches.items():
                 by_path.setdefault(name, {})[phase] = n
             free_device()
-    emit(dryrun_path())
+    with tempfile.TemporaryDirectory() as tmp:
+        started = examples_start(tmp)       # beside the host-only dry run
+        try:
+            emit(dryrun_path())
+        except BaseException:
+            for p, out, _ in started.values():
+                p.kill()
+                p.wait()
+                out.close()
+            raise
+        record, launches = examples_finish(started)
+    record["kernels_at_their_shapes"] = example_kernel_shapes(card)
+    emit(record)
+    for name, n in launches.items():
+        if n:
+            by_path.setdefault(name, {})["examples"] = n
+    n = by_path.get("vpc_datapath", {}).get("examples", 0)
+    vpc["launches_by_path"]["examples"] = n
+    vpc.update(launches=sum(vpc["launches_by_path"].values()),
+               path=vpc["path"] + ", examples")
 
     print(card.smi, flush=True)             # again, within the tail
-    emit({"kernels": [vpc, chacha] + [
+    emit({"kernels": [vpc, with_paths(chacha, by_path, at)] + [
         with_paths(line, by_path, at)
         for line in (lines["flash_attention"], lines["moe_gmm"], *quant,
                      lines["mamba_ssm"], lines["rwkv6_wkv"])]})

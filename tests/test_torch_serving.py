@@ -233,10 +233,10 @@ def test_configs_match_jax():
 
 
 @pytest.mark.parametrize("arch", ["qwen2-vl-2b"])
-def test_other_families_raise_naming_their_slice(arch):
-    """The name dates from when Qwen2-VL's multimodal RoPE raised; it is
-    ported now, so a Qwen2-VL prefill from embeddings (M-RoPE over (3, B,
-    S) positions) is held against the JAX package's, logits within 1e-4."""
+def test_qwen2_vl_prefill_from_embeddings_matches_jax(arch):
+    """A Qwen2-VL prefill from embeddings with no positions (M-RoPE's text
+    default, t = h = w) held against the JAX package's, logits within
+    1e-4."""
     cfg = jconfigs.get_tiny_config(arch)
     jp = JM.init_params(jax.random.PRNGKey(2), cfg)
     embeds = np.random.default_rng(4).standard_normal(
@@ -245,6 +245,64 @@ def test_other_families_raise_naming_their_slice(arch):
     tl, _ = TM.apply_prefill(ported(jp, cfg), cfg,
                              {"embeds": torch.from_numpy(embeds)}, max_len=8)
     assert_logits(tl, jl)
+
+
+def patch_grid_positions(grids, S):
+    """(3, B, S) int32 M-RoPE positions, as Qwen2-VL numbers an image
+    followed by text: row b's first gh x gw positions are the patch grid
+    of ``grids[b]`` (t constant 0, h the row, w the column), and the text
+    then continues from the grid's largest index + 1 on all three."""
+    pos = np.zeros((3, len(grids), S), np.int32)
+    for b, (gh, gw) in enumerate(grids):
+        n = gh * gw
+        pos[1, b, :n] = np.arange(n) // gw
+        pos[2, b, :n] = np.arange(n) % gw
+        pos[:, b, n:] = max(gh, gw) + np.arange(S - n)
+    return pos
+
+
+@pytest.mark.parametrize("scan", [False, True])
+def test_qwen2_vl_patch_grid_prefill_and_decode_match_jax(scan):
+    """Tiny Qwen2-VL from embeddings with a patch grid in its positions, so
+    t, h and w differ and M-RoPE's three sections rotate by different
+    indices: the prefill's logits and KV cache, then two decode steps (all
+    three indices = the cache position, the JAX package's convention),
+    within 1e-4 of the JAX package's.  The same prompt with t = h = w must
+    give other logits (the sections are held apart)."""
+    cfg = jconfigs.get_tiny_config("qwen2-vl-2b").replace(scan_layers=scan)
+    assert cfg.mrope_sections == (2, 3, 3)
+    jp = JM.init_params(jax.random.PRNGKey(9), cfg)
+    tp = ported(jp, cfg)
+    S, max_len = 16, 20
+    rng = np.random.default_rng(5)
+    embeds = rng.standard_normal((2, S, cfg.d_model)).astype(np.float32)
+    pos = patch_grid_positions([(3, 4), (2, 6)], S)
+    assert (pos[0] != pos[1]).any() and (pos[1] != pos[2]).any()
+    jl, jc = j_prefill(jp, cfg, {"embeds": jnp.asarray(embeds),
+                                 "positions": jnp.asarray(pos)},
+                       max_len=max_len)
+    tl, tc = TM.apply_prefill(tp, cfg, {"embeds": torch.from_numpy(embeds),
+                                        "positions": torch.from_numpy(pos)},
+                              max_len=max_len)
+    assert_logits(tl, jl)
+    for i in range(cfg.n_layers):
+        for name in ("k", "v"):
+            jk = jc[name][i] if scan else jc[i][name]
+            np.testing.assert_allclose(tc[i][name].numpy(), np.asarray(jk),
+                                       atol=1e-4, rtol=1e-4)
+    text, _ = TM.apply_prefill(tp, cfg, {"embeds": torch.from_numpy(embeds)},
+                               max_len=max_len)
+    assert not np.allclose(text.numpy(), tl.numpy(), atol=1e-3)
+    for step in range(2):
+        x = rng.standard_normal((2, 1, cfg.d_model)).astype(np.float32)
+        jl, jc = j_decode(jp, cfg, jc, {"embeds": jnp.asarray(x)},
+                          jnp.int32(S + step))
+        tl, tc = TM.apply_decode(tp, cfg, tc, {"embeds": torch.from_numpy(x)},
+                                 S + step)
+        assert_logits(tl, jl)
+        jk = jc["k"][-1] if scan else jc[-1]["k"]
+        np.testing.assert_allclose(tc[-1]["k"].numpy(), np.asarray(jk),
+                                   atol=1e-4, rtol=1e-4)
 
 
 def test_init_params_shapes_dtypes_and_default_device():

@@ -199,6 +199,34 @@ def test_train_step_matches_jax(accum):
     assert int(to.count) == 1
 
 
+@pytest.mark.parametrize("arch", ["musicgen-medium", "qwen2-vl-2b"])
+def test_train_step_on_embeddings_matches_jax(arch):
+    """A train step of the two embeddings-frontend configs on their
+    embeddings batch (``SyntheticLM``'s draw); Qwen2-VL's carries (3, B, S)
+    M-RoPE positions with a patch grid per row, so t, h and w differ."""
+    from test_torch_serving import patch_grid_positions
+    cfg = jconfigs.get_tiny_config(arch)
+    assert cfg.frontend == "embeds"
+    jp = JM.init_params(jax.random.PRNGKey(6), cfg)
+    tp = ported(jp, cfg)
+    jb = JSyntheticLM(cfg, 4, 32, seed=3).batch(0)
+    if cfg.mrope_sections:
+        jb["positions"] = jnp.asarray(patch_grid_positions(
+            [(4, 4), (2, 8), (3, 5), (1, 6)], 32))
+    jstep = jax.jit(jsteps.make_train_step(cfg, lr=1e-3))
+    jp, jo, jm = jstep(jp, jadamw.init(jp), jb)
+    tp, to, tm = steps.make_train_step(cfg, lr=1e-3)(tp, init_opt(tp),
+                                                      t_batch(jb))
+    assert sorted(tm) == sorted(jm)
+    for k in jm:
+        np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-5,
+                                   atol=1e-7)
+    for a, b in zip(leaves(tp), jax.tree.leaves(jp)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
+                                   atol=5e-2 * 1e-3)
+    assert int(to.count) == 1
+
+
 def init_opt(params):
     return adamw.init(params, "float32")
 
