@@ -145,7 +145,7 @@ prints one JSON line per phase:
                  from a seeded generator: ``train_moe`` (granite whole,
                  int8 compression), ``train_hybrid`` (jamba cut to its
                  first two layers, Mamba + MLP and Mamba + 16-expert MoE,
-                 grad_accum 1), ``train_rwkv`` (rwkv6-3b cut to 8
+                 grad_accum 1), ``train_rwkv`` (rwkv6-3b cut to 2
                  layers), ``train_stablelm`` (stablelm-12b cut to 4
                  layers, head dim 160, int8 compression, grad_accum 1),
                  ``train_audio`` (musicgen-medium whole, 48 layers, 24
@@ -163,10 +163,11 @@ prints one JSON line per phase:
                  plain route takes the kernels' experts), where a scan
                  backward recomputing every segment from a zero state, a
                  loss without the router's aux term and the attention
-                 kernel's LSE shifted by log 2 must fail; RWKV's
-                 at 2 layers, and its 8 within twice the spread of a
-                 plain route whose scan runs in f64 (through 8 random
-                 layers f32 rounding alone exceeds 1e-4).  Then the
+                 kernel's LSE shifted by log 2 must fail (a phase
+                 whose depth lets f32 rounding alone exceed 1e-4 gates at
+                 a depth where it does not, and its own depth within
+                 twice the spread of a plain route whose scans run in
+                 f64; no phase needs it now).  Then the
                  Trainer's run: exact launches a step (``moe_gmm`` 6 a MoE
                  layer, the forward and the remat recompute; ``mamba_ssm``
                  and ``rwkv6_wkv`` 128 a layer, 64 segments twice;
@@ -363,6 +364,8 @@ TRACE_FINGERPRINT = "f1a89120f28456dc"
 #: seed and the NAT address both deployments read from then on
 SWAP_RULES_SEED = 9
 SWAP_NAT_IP = 0x0B000002
+#: profiled runs a device-operation count takes the largest of
+DEVICE_OPS_READS = 3
 #: the mixed fleet: each sim tenant's Poisson source (3x the sNIC's 100
 #: Gbit/s port between the two) and the window, and the band its 2 : 1
 #: served-byte ratio must land in
@@ -493,16 +496,17 @@ TRAIN_SEED = 16
 #: Jamba's first two layers (Mamba + MLP, Mamba + 16-expert MoE: 3.74 B,
 #: 2.82 B of them the MoE; f32 masters, bf16 copies and gradients, f32
 #: moments ~60 GB; int8's f32 gradients and EF would need ~75 GB), its
-#: grad_accum 4 -> 1; RWKV-6 cut to 8 of 32 layers (1.0 B, ~16 GB) for
-#: time: its backward recomputes 4,096 plain scan steps a layer; StableLM
-#: (head dim 160, LayerNorm) cut to 4 of 40 layers with int8 (2.14 B, five
-#: f32 copies ~43 GB; all 40 would need ~240 GB), its grad_accum 2 -> 1
-#: (a batch of one sequence).  The last field is the depth of the f32
-#: gate where it is not the phase's: through 8 random RWKV layers f32
-#: rounding of the scan alone moves the gradient by 8.3e-4 relative L2 (a
-#: plain route with the scan in f64 against the f32 one), above the gate's
-#: 1e-4, and by 3.6e-6 through 2 (PERF.md section 6); the 8 layers are
-#: held to twice that spread instead.  The two embeddings-frontend
+#: grad_accum 4 -> 1; RWKV-6 cut to 2 of 32 layers (0.51 B) for time:
+#: its backward recomputes 4,096 plain scan steps a layer on the host, and
+#: through 2 random layers f32 rounding of the scan moves the gradient by
+#: 3.6e-6 relative L2 (a plain route with the scan in f64 against the f32
+#: one), under the gate's 1e-4 (through 8: 8.3e-4, PERF.md section 6);
+#: StableLM (head dim 160, LayerNorm) cut to 4 of 40 layers with int8
+#: (2.14 B, five f32 copies ~43 GB; all 40 would need ~240 GB), its
+#: grad_accum 2 -> 1 (a batch of one sequence).  The last field is the
+#: depth of the f32 gate where it is not the phase's (None: the phase's
+#: own), the phase's depth then held within twice the spread of a plain
+#: route whose scans run in f64.  The two embeddings-frontend
 #: configs run whole with int8: musicgen-medium (48 LayerNorm + GELU
 #: layers, 24 heads of 64, 1.36 B parameters in 485 tensors) and
 #: qwen2-vl-2b (28 layers, 12 / 2 heads of 128 with M-RoPE, an untied
@@ -511,7 +515,7 @@ TRAIN_SEED = 16
 TRAIN_FAMILIES = {
     "train_moe": ("granite-moe-1b-a400m", None, "int8", None),
     "train_hybrid": ("jamba-v0.1-52b", 2, "none", None),
-    "train_rwkv": ("rwkv6-3b", 8, "none", 2),
+    "train_rwkv": ("rwkv6-3b", 2, "none", None),
     "train_stablelm": ("stablelm-12b", 4, "int8", None),
     "train_audio": ("musicgen-medium", None, "int8", None),
     "train_vlm": ("qwen2-vl-2b", None, "int8", None),
@@ -1914,17 +1918,30 @@ def sim_resilience_path() -> dict:
             "wall_seconds": secs}
 
 
-def device_ops(one_run) -> dict:
-    """CUDA kernels and memory operations (copies, fills) one run of a
-    path puts on the card, from ``torch.profiler``'s device events."""
+def device_ops_reads(one_run, n: int) -> list:
+    """``n`` readings of the CUDA kernels and memory operations (copies,
+    fills) one run of a path puts on the card, each from
+    ``torch.profiler``'s device events of one more run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        one_run()
-    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    mem = sum(1 for e in ev if e.name.startswith(("Memcpy", "Memset")))
-    return {"kernels": len(ev) - mem, "memory_ops": mem}
+    reads = []
+    for _ in range(n):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            one_run()
+        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        mem = sum(1 for e in ev if e.name.startswith(("Memcpy", "Memset")))
+        reads.append({"kernels": len(ev) - mem, "memory_ops": mem})
+    return reads
+
+
+def device_ops(one_run) -> dict:
+    """The device operations one run of a path puts on the card: each
+    count the largest of DEVICE_OPS_READS readings.  The profiler drops a
+    run's kernel records now and then (``tools/device_ops_reads.py``), and
+    a dropped record only lowers a reading."""
+    reads = device_ops_reads(one_run, DEVICE_OPS_READS)
+    return {k: max(r[k] for r in reads) for k in reads[0]}
 
 
 class _Forget(dict):

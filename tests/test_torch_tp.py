@@ -3,8 +3,14 @@ of the sharded Trainer and the sharded prefill held against the port's
 one-process step and prefill.
 
 The jobs run as ``tests/test_torch_mesh.py``'s do: one process a rank,
-a ``file://`` store in ``tmp_path``, a 60 s group timeout, one thread a
-rank, a timeout on the whole job.  The configs are the three whose rule
+a ``file://`` store in ``tmp_path``, one thread a rank.  The three jobs
+start at once and share one deadline, which is also the ranks' group
+timeout; each rank's output goes to a file, and the results rank 0 saved
+are read back as the jobs end.  The one-process references compute on one
+thread, as each rank does.  A host loaded by other test workers stretches
+a job many times over, and a reference on every thread of the worker far
+more (``tools/tp_jobs_under_load.py`` times both), so no timeout is sized
+to an idle host.  The configs are the three whose rule
 tables shard over "model" (tiny qwen2.5-32b, grok-1-314b with 4 experts
 not split over ranks, jamba-v0.1-52b with ``moe_ep``), and every module of
 theirs runs its tensor-parallel form on a "model" axis wider than 1.
@@ -49,6 +55,8 @@ import os
 import re
 import subprocess
 import sys
+import time
+from contextlib import contextmanager
 from functools import lru_cache
 from pathlib import Path
 
@@ -103,6 +111,12 @@ DECODE_2X2 = ("qwen2.5-32b", "jamba-v0.1-52b")
 SPLIT_1X4 = ("rwkv6-3b", "granite-moe-1b-a400m")
 #: tiny granite's capacity factor lowered until its prefill drops entries
 CAPACITY = 0.5
+#: the jobs and their ranks, started at once
+JOBS = {"four": 4, "eight": 8, "two": 2}
+#: seconds the three jobs have together, and each rank's group timeout:
+#: the three jobs' old timeouts added (400, 300 and 200 s, each from the
+#: end of the job before)
+JOB_DEADLINE = 900
 
 WORKER = r'''
 import os, shutil, sys
@@ -116,7 +130,8 @@ import torch
 import torch.distributed as dist
 torch.set_num_threads(1)
 dist.init_process_group("gloo", init_method="file://" + rdv, rank=rank,
-                        world_size=world, timeout=timedelta(seconds=60))
+                        world_size=world,
+                        timeout=timedelta(seconds={deadline}))
 from torch.utils.flop_counter import FlopCounterMode
 from repro_torch._tree import leaves
 from repro_torch.data import SyntheticLM
@@ -128,11 +143,13 @@ from repro_torch.models import moe as X
 from repro_torch.parallel import ctx as pctx
 from repro_torch.parallel import sharding as SH
 quiet = dict(log=lambda *a: None)
+saved = []
 
 
 def save(name, obj):
     if rank == 0:
         torch.save(obj, os.path.join(out, name + ".pt"))
+        saved.append(name)
 
 
 def step(tag, cfg, mesh, batch, compress):
@@ -290,58 +307,72 @@ if job == "two":
         train.main(["--arch", "tiny:qwen2.5-32b", "--mesh", "1x2",
                     "--device", "cpu", "--steps", "{cli_steps}", "--batch",
                     "16", "--seq", "{seq}"])
-    if rank == 0:
-        with open(os.path.join(out, "cli.txt"), "w") as f:
-            f.write(text.getvalue())
+    save("cli", text.getvalue())
+save("saved", saved)
 dist.destroy_process_group()
 '''
 
 
-def run_job(tmp: Path, job: str, world: int, timeout: int) -> Path:
-    """Run ``job`` on ``world`` ranks (one process each); its outputs land
-    in the returned directory."""
-    out = tmp / job
-    out.mkdir()
-    script = tmp / f"{job}_worker.py"
-    script.write_text(WORKER.format(
-        src=SRC, cases=CASES, compress=COMPRESS, seq=SEQ, uneven=UNEVEN,
-        batch=PREFILL["batch"], pseq=PREFILL["seq"], pseed=PREFILL["seed"],
-        cli_steps=CLI_STEPS, eps=EPS, dprompt=DECODE["prompt"],
-        dmax=DECODE["max_len"], dsteps=DECODE["steps"],
-        dseed=DECODE["seed"], dbatch=DECODE["batch"], archs=ARCHS,
-        decode4=DECODE_1X4, decode22=DECODE_2X2, split2=FSDP_ONLY,
-        split4=SPLIT_1X4, capacity=CAPACITY))
+def run_jobs(tmp: Path) -> dict:
+    """Run every job of ``JOBS`` at once (one process a rank) under one
+    deadline; returns every result rank 0 of each job saved (name ->
+    object), read as the jobs end."""
     env = {**os.environ, "PYTHONPATH": SRC, "OMP_NUM_THREADS": "1"}
-    procs = [subprocess.Popen(
-        [sys.executable, str(script), str(r), str(world),
-         str(tmp / f"{job}_rdv"), str(out), job], env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(world)]
-    logs = []
+    ranks = []
+    for job, world in JOBS.items():
+        out = tmp / job
+        out.mkdir()
+        script = tmp / f"{job}_worker.py"
+        script.write_text(WORKER.format(
+            src=SRC, cases=CASES, compress=COMPRESS, seq=SEQ, uneven=UNEVEN,
+            batch=PREFILL["batch"], pseq=PREFILL["seq"],
+            pseed=PREFILL["seed"], cli_steps=CLI_STEPS, eps=EPS,
+            dprompt=DECODE["prompt"], dmax=DECODE["max_len"],
+            dsteps=DECODE["steps"], dseed=DECODE["seed"],
+            dbatch=DECODE["batch"], archs=ARCHS, decode4=DECODE_1X4,
+            decode22=DECODE_2X2, split2=FSDP_ONLY, split4=SPLIT_1X4,
+            capacity=CAPACITY, deadline=JOB_DEADLINE))
+        for r in range(world):
+            log = tmp / f"{job}_rank{r}.log"
+            with open(log, "w") as f:       # a file: no pipe to fill
+                ranks.append((log, subprocess.Popen(
+                    [sys.executable, str(script), str(r), str(world),
+                     str(tmp / f"{job}_rdv"), str(out), job], env=env,
+                    stdout=f, stderr=subprocess.STDOUT)))
+    end = time.monotonic() + JOB_DEADLINE
     try:
-        for p in procs:
-            logs.append(p.communicate(timeout=timeout)[0])
+        for _, p in ranks:
+            p.wait(timeout=max(1.0, end - time.monotonic()))
     finally:
-        for p in procs:
+        for _, p in ranks:
             p.kill()
-    assert all(p.returncode == 0 for p in procs), "\n".join(
-        log[-2000:] for log in logs)
-    return out
+            p.wait()
+    assert all(p.returncode == 0 for _, p in ranks), "\n".join(
+        f"{log.name} (exit {p.returncode}):\n{log.read_text()[-2000:]}"
+        for log, p in ranks if p.returncode)
+    results = {}
+    for job in JOBS:
+        for name in torch.load(tmp / job / "saved.pt"):
+            results[name] = torch.load(tmp / job / f"{name}.pt")
+    return results
 
 
 @pytest.fixture(scope="module")
 def jobs(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("tp")
-    return {"four": run_job(tmp, "four", 4, 400),
-            "eight": run_job(tmp, "eight", 8, 300),
-            "two": run_job(tmp, "two", 2, 200)}
+    return run_jobs(tmp_path_factory.mktemp("tp"))
 
 
-def result(jobs, name: str):
-    for d in jobs.values():
-        if (d / f"{name}.pt").exists():
-            return torch.load(d / f"{name}.pt")
-    raise FileNotFoundError(name)
+@contextmanager
+def one_thread():
+    """PyTorch on one thread, as each rank computes: beside other busy
+    processes every thread of a process's pool must be scheduled at each
+    of an op's barriers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
 
 
 @lru_cache(maxsize=None)
@@ -349,10 +380,45 @@ def one_process(arch: str, batch: int, compress: str, **replace):
     cfg = configs.get_tiny_config(arch)
     if replace:
         cfg = cfg.replace(**replace)
-    tr = train.Trainer(cfg, lr=LR, eps=EPS, compress=compress, seed=0,
-                       device="cpu")
-    losses = tr.run(1, batch, SEQ, seed=0, log=lambda *a: None)
+    with one_thread():
+        tr = train.Trainer(cfg, lr=LR, eps=EPS, compress=compress, seed=0,
+                           device="cpu")
+        losses = tr.run(1, batch, SEQ, seed=0, log=lambda *a: None)
     return losses, leaves(tr.params), leaves(tr.opt.m)
+
+
+class _Threads(torch.overrides.TorchFunctionMode):
+    """The intra-op threads PyTorch had at each torch call in its block."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen = set()
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        self.seen.add(torch.get_num_threads())
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("kind", ["step", "prefill", "decode"])
+def test_references_compute_on_one_thread_like_the_ranks(kind):
+    """A one-process reference computes on one thread, as each rank does,
+    whatever the worker's pool: beside other busy test workers a pool's
+    barriers wait on threads the host does not schedule, and the file's
+    tiny references ran orders of magnitude slower than alone."""
+    run = {"step": lambda: one_process.__wrapped__("qwen2.5-32b", 16,
+                                                    "none"),
+           "prefill": lambda: one_process_prefill.__wrapped__("yi-6b"),
+           "decode": lambda: one_process_decode.__wrapped__(
+               "yi-6b", DECODE["batch"])}[kind]
+    n = torch.get_num_threads()
+    torch.set_num_threads(4)
+    try:
+        with _Threads() as mode:
+            run()
+        assert torch.get_num_threads() == 4
+    finally:
+        torch.set_num_threads(n)
+    assert mode.seen == {1}, mode.seen
 
 
 def assert_step_equal(got, want, grads: bool):
@@ -374,7 +440,7 @@ def assert_step_equal(got, want, grads: bool):
 @pytest.mark.parametrize("arch,batch", CASES)
 @pytest.mark.parametrize("mesh", MESHES)
 def test_tp_step_matches_one_process(jobs, mesh, arch, batch, compress):
-    assert_step_equal(result(jobs, f"{mesh}-{arch}-{compress}"),
+    assert_step_equal(jobs[f"{mesh}-{arch}-{compress}"],
                       one_process(arch, batch, compress),
                       grads=compress == "none")
 
@@ -388,7 +454,7 @@ def test_uneven_heads_step_matches_one_process(jobs, heads):
     repeats = [A._kv_rows(*s, 10 // UNEVEN[heads]["n_kv_heads"])
                for s in split]
     assert any(r is not None for r in repeats) == (heads == "10-5")
-    assert_step_equal(result(jobs, "uneven-" + heads),
+    assert_step_equal(jobs["uneven-" + heads],
                       one_process("qwen2.5-32b", 16, "none",
                                   **UNEVEN[heads]), grads=True)
 
@@ -397,7 +463,7 @@ def test_qk_norm_step_matches_one_process(jobs):
     """Tiny qwen3-8b (qk-norm) under the FSDP x TP rules on 1 x 2: each rank
     normalizes its own heads with the replicated ``q_norm`` / ``k_norm``,
     whose gradient is the sum of the ranks' parts."""
-    assert_step_equal(result(jobs, "qknorm-1x2"),
+    assert_step_equal(jobs["qknorm-1x2"],
                       one_process("qwen3-8b", 8, "none", fsdp_only=False),
                       grads=True)
 
@@ -410,16 +476,16 @@ def test_rank_flops_are_a_quarter_on_four_model_ranks(jobs):
     hb = SyntheticLM(cfg, 16, SEQ, seed=0, device="cpu").host_batch(0)
     rows = 16 // cfg.grad_accum                   # the first microbatch
     mb = {k: torch.from_numpy(v[:rows]) for k, v in hb.items()}
-    with FlopCounterMode(display=False) as fc:
+    with one_thread(), FlopCounterMode(display=False) as fc:
         steps.value_and_grad(params, cfg, mb)
-    rank0 = result(jobs, "flops")["rank0"]
+    rank0 = jobs["flops"]["rank0"]
     ratio = rank0 / fc.get_total_flops()
     assert 0 < ratio <= FLOP_BOUND, ratio
 
 
 @pytest.mark.parametrize("shape", ["1x4", "4x1"])
 def test_elastic_restart_of_a_tp_run(jobs, shape):
-    got = result(jobs, "elastic")
+    got = jobs["elastic"]
     ref, after = got["ref"], got["got"][shape]
     assert len(ref) == 8 and len(after) == 4
     np.testing.assert_allclose(after, ref[4:], rtol=1e-5)
@@ -428,11 +494,12 @@ def test_elastic_restart_of_a_tp_run(jobs, shape):
 @lru_cache(maxsize=None)
 def one_process_prefill(arch: str):
     cfg = configs.get_tiny_config(arch)
-    params = MD.init_params(0, cfg, device="cpu")
-    b = MD.dummy_batch(cfg, PREFILL["batch"], PREFILL["seq"], kind="prefill",
-                       gen=PREFILL["seed"], device="cpu")
-    with torch.inference_mode():
-        return MD.apply_prefill(params, cfg, b)
+    with one_thread():
+        params = MD.init_params(0, cfg, device="cpu")
+        b = MD.dummy_batch(cfg, PREFILL["batch"], PREFILL["seq"],
+                           kind="prefill", gen=PREFILL["seed"], device="cpu")
+        with torch.inference_mode():
+            return MD.apply_prefill(params, cfg, b)
 
 
 def close(a, b, what: str):
@@ -444,7 +511,7 @@ def close(a, b, what: str):
 @pytest.mark.parametrize("arch", [a for a, _ in CASES])
 @pytest.mark.parametrize("shape", ["1x2", "1x4"])
 def test_tp_prefill_matches_one_process(jobs, shape, arch):
-    got = result(jobs, f"prefill-{shape}-{arch}")
+    got = jobs[f"prefill-{shape}-{arch}"]
     logits, cache = one_process_prefill(arch)
     close(got["logits"], logits, "logits")
     assert torch.equal(got["logits"].argmax(-1), logits.argmax(-1))
@@ -468,19 +535,21 @@ def one_process_decode(arch: str, B: int, replace: tuple = ()):
     """The worker's ``decode`` in one process: each step's logits and the
     cache at the end."""
     cfg = configs.get_tiny_config(arch).replace(**dict(replace))
-    params = MD.init_params(0, cfg, device="cpu")
-    b = MD.dummy_batch(cfg, B, DECODE["prompt"], kind="prefill",
-                       gen=DECODE["seed"], device="cpu")
     logits = []
-    with torch.inference_mode():
-        _, cache = MD.apply_prefill(params, cfg, b,
-                                    max_len=DECODE["max_len"])
-        for t in range(DECODE["steps"]):
-            tb = MD.dummy_batch(cfg, B, 1, kind="prefill",
-                                gen=DECODE["seed"] + 1 + t, device="cpu")
-            lg, cache = MD.apply_decode(params, cfg, cache, tb,
-                                        DECODE["prompt"] + t)
-            logits.append(lg)
+    with one_thread():
+        params = MD.init_params(0, cfg, device="cpu")
+        b = MD.dummy_batch(cfg, B, DECODE["prompt"], kind="prefill",
+                           gen=DECODE["seed"], device="cpu")
+        with torch.inference_mode():
+            _, cache = MD.apply_prefill(params, cfg, b,
+                                        max_len=DECODE["max_len"])
+            for t in range(DECODE["steps"]):
+                tb = MD.dummy_batch(cfg, B, 1, kind="prefill",
+                                    gen=DECODE["seed"] + 1 + t,
+                                    device="cpu")
+                lg, cache = MD.apply_decode(params, cfg, cache, tb,
+                                            DECODE["prompt"] + t)
+                logits.append(lg)
     return logits, cache
 
 
@@ -501,7 +570,7 @@ def test_split_decode_matches_one_process(jobs, tag, arch, B, replace):
     "model", or every axis at B 1; the scans' states by feature): every
     step's logits and the cache after three steps, gathered, within 1e-5
     of their scale of one process's."""
-    got = result(jobs, tag)
+    got = jobs[tag]
     logits, cache = one_process_decode(arch, B, replace)
     assert len(got["logits"]) == len(logits) == DECODE["steps"]
     for a, b in zip(got["logits"], logits):
@@ -518,7 +587,7 @@ def test_sequence_split_prefill_matches_one_process(jobs, tag, arch):
     "model" (replicated weights): the last logits, and the cache gathered
     (KV over the ranks' positions, the RWKV states and last tokens the
     sequence's end), within 1e-5 of their scale of one process's."""
-    got = result(jobs, tag)
+    got = jobs[tag]
     logits, cache = one_process_prefill(arch)
     close(got["logits"], logits, "logits")
     assert torch.equal(got["logits"].argmax(-1), logits.argmax(-1))
@@ -547,11 +616,11 @@ def test_sequence_split_prefill_keeps_the_whole_rows_capacity(jobs):
                        gen=PREFILL["seed"], device="cpu")
     X._group_dispatch = record
     try:
-        with torch.inference_mode():
+        with torch.inference_mode(), one_thread():
             logits, cache = MD.apply_prefill(params, cfg, b)
     finally:
         X._group_dispatch = dispatch
-    got = result(jobs, "split-capacity")
+    got = jobs["split-capacity"]
     assert drops, "the one-process prefill drops no entry"
     assert got["drops"] == sorted(drops)
     close(got["logits"], logits, "logits")
@@ -559,11 +628,12 @@ def test_sequence_split_prefill_keeps_the_whole_rows_capacity(jobs):
 
 
 def test_cli_on_two_model_ranks_matches_one_process(jobs):
-    text = (jobs["two"] / "cli.txt").read_text()
+    text = jobs["cli"]
     last = float(re.search(r"last loss ([0-9.]+)", text).group(1))
     tr = train.Trainer(configs.get_tiny_config("qwen2.5-32b"), seed=0,
                        device="cpu")
-    want = tr.run(CLI_STEPS, 16, SEQ, seed=0, log=lambda *a: None)[-1]
+    with one_thread():
+        want = tr.run(CLI_STEPS, 16, SEQ, seed=0, log=lambda *a: None)[-1]
     np.testing.assert_allclose(last, want, rtol=1e-5)
 
 
